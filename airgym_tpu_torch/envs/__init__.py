@@ -1,0 +1,40 @@
+"""Task registry (counterpart of airgym_tpu/envs/__init__.py).
+
+This slice ports Hovering; every other task of the JAX package is still
+to come (ROADMAP.md queue A items 10-13) and ``make_task`` refuses it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from airgym_tpu_torch import device as device_mod
+from airgym_tpu_torch.envs.hovering import Hovering, HoveringCfg
+
+_REGISTRY = {"hovering": (Hovering, HoveringCfg)}
+
+_NOT_PORTED = {
+    "balloon": "queue A item 10", "tracking": "queue A item 10",
+    "avoid": "queue A item 12", "planning": "queue A item 12",
+    "customized": "queue A item 11", "maplanning": "queue A item 13",
+    "depthgen": "queue A item 13",
+}
+
+
+def registered_tasks():
+    return sorted(_REGISTRY)
+
+
+def make_task(name: str, ctl_mode: str = "rate", num_envs: int | None = None,
+              device=None, **overrides):
+    """Functional task on ``device`` (default ``cuda``)."""
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"task {name!r} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown task {name!r}; have {registered_tasks()}")
+    task_cls, cfg_cls = _REGISTRY[name]
+    kw = dict(ctl_mode=ctl_mode, **overrides)
+    if num_envs is not None:
+        kw["num_envs"] = num_envs
+    cfg = dataclasses.replace(cfg_cls(), **kw)
+    return task_cls(cfg, device_mod.resolve(device))

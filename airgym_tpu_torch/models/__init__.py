@@ -1,0 +1,1 @@
+"""See the counterpart package under airgym_tpu/."""

@@ -1,0 +1,209 @@
+"""Checkpoints (counterpart of airgym_tpu/rl/checkpoint.py).
+
+* Native format: a torch file of plain tensors and numbers (``save`` /
+  ``load`` / ``restore``): the model state dict, the running stats, the
+  Adam moments and count, lr, epoch and frame. The env state is not
+  saved; a resumed run re-initializes its envs, as the reference does.
+* ``export_pth`` / ``import_pth``: the reference .pth layout
+  (``model`` = actor_mlp.layers.N.*, mu.*, value_head.*, logstd,
+  running_mean_std.*, value_mean_std.* with float64 stats), which the JAX
+  package's ``import_pth`` / ``export_pth`` also read and write.
+* ``from_jax``: carries a JAX TrainState's parameters, running stats and
+  Adam state, given as numpy pytrees, into the native format.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+
+
+def _rms_payload(rms: Optional[RunningMeanStd]):
+    if rms is None:
+        return None
+    return {k: getattr(rms, k).detach().cpu() for k in ("mean", "var", "count")}
+
+
+def _rms_from_payload(d, device) -> Optional[RunningMeanStd]:
+    if d is None:
+        return None
+    return RunningMeanStd(*(d[k].to(device=device, dtype=torch.float64)
+                            for k in ("mean", "var", "count")))
+
+
+def payload(ts) -> Dict[str, Any]:
+    """TrainState -> the native checkpoint dict (CPU tensors)."""
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    return {
+        "model": cpu(ts.model.state_dict()),
+        "obs_rms": _rms_payload(ts.obs_rms),
+        "value_rms": _rms_payload(ts.value_rms),
+        "adam": {"m": cpu(ts.adam["m"]), "v": cpu(ts.adam["v"]),
+                 "count": ts.adam["count"].detach().cpu().clone()},
+        "lr": float(ts.lr),
+        "epoch": int(ts.epoch),
+        "frame": int(ts.frame),
+    }
+
+
+def save(path: str, ts) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(payload(ts), path)
+
+
+def load(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore(ts, ck: Dict[str, Any]):
+    """Apply a native checkpoint dict to a TrainState (env state kept)."""
+    dev = ts.lr.device
+    ts.model.load_state_dict(ck["model"])
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    adam = ck.get("adam")
+    if adam is not None:
+        adam = {"m": to(adam["m"]), "v": to(adam["v"]),
+                "count": adam["count"].to(device=dev,
+                                          dtype=torch.float32).reshape(1)}
+    else:
+        adam = ts.adam
+    return dataclasses.replace(
+        ts, adam=adam,
+        obs_rms=_rms_from_payload(ck.get("obs_rms"), dev) or ts.obs_rms,
+        value_rms=_rms_from_payload(ck.get("value_rms"), dev) or ts.value_rms,
+        lr=torch.tensor(ck.get("lr", float(ts.lr)), dtype=torch.float32,
+                        device=dev),
+        epoch=int(ck.get("epoch", 0)), frame=int(ck.get("frame", 0)))
+
+
+# ---------------------------------------------------------------------------
+# reference .pth layout
+
+
+def _rms_to_ref(rms: RunningMeanStd, prefix: str, out: Dict[str, Any]):
+    # 0-d stats travel as [1], as numpy's ascontiguousarray makes them
+    for k, key in (("mean", "running_mean"), ("var", "running_var"),
+                   ("count", "count")):
+        v = getattr(rms, k).detach().to("cpu", torch.float64)
+        out[f"{prefix}.{key}"] = v.reshape(1) if v.dim() == 0 else v
+
+
+def model_state_dict(model, obs_rms=None, value_rms=None) -> Dict[str, Any]:
+    out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if value_rms is not None:
+        _rms_to_ref(value_rms, "value_mean_std", out)
+    if obs_rms is not None:
+        _rms_to_ref(obs_rms, "running_mean_std", out)
+    return out
+
+
+def export_pth(path: str, ts, last_mean_rewards: float = -1e9) -> None:
+    """Write a reference-layout .pth (reference torch_ext.load_checkpoint
+    and the JAX package's import_pth read it)."""
+    state = {
+        "model": model_state_dict(ts.model, ts.obs_rms, ts.value_rms),
+        "epoch": int(ts.epoch),
+        "frame": int(ts.frame),
+        "optimizer": {"state": {}, "param_groups": []},
+        "last_mean_rewards": float(last_mean_rewards),
+        "env_state": None,
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(state, path)
+
+
+def import_pth(path: str, model, obs_rms=None, value_rms=None):
+    """Load a reference .pth into ``model`` (in place); returns the
+    (obs_rms, value_rms, meta) it carries, or the given ones where it
+    has none."""
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: torch.as_tensor(v) for k, v in ck["model"].items()}
+    own = model.state_dict()
+    model.load_state_dict({k: sd[k].to(own[k].dtype).reshape(own[k].shape)
+                           for k in own})
+
+    def rms(prefix, template):
+        if template is None or f"{prefix}.running_mean" not in sd:
+            return template
+        dev = template.mean.device
+        f = lambda key, shape: sd[f"{prefix}.{key}"].to(
+            device=dev, dtype=torch.float64).reshape(shape)
+        return RunningMeanStd(f("running_mean", template.mean.shape),
+                              f("running_var", template.var.shape),
+                              f("count", ()))
+
+    meta = {"epoch": int(ck.get("epoch", 0)), "frame": int(ck.get("frame", 0)),
+            "last_mean_rewards": float(ck.get("last_mean_rewards", -1e9))}
+    return rms("running_mean_std", obs_rms), rms("value_mean_std",
+                                                 value_rms), meta
+
+
+# ---------------------------------------------------------------------------
+# JAX -> port
+
+
+def _get(x, name):
+    return x[name] if isinstance(x, dict) else getattr(x, name)
+
+
+def _jax_params_to_ref(p) -> Dict[str, torch.Tensor]:
+    """flax ActorCritic params (numpy) -> reference-layout tensors."""
+    p = p.get("params", p)
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    out = {}
+    mlp = p["actor_mlp"]
+    for i in range(len(mlp)):
+        out[f"actor_mlp.layers.{i}.weight"] = t(mlp[f"Dense_{i}"]["kernel"]).T
+        out[f"actor_mlp.layers.{i}.bias"] = t(mlp[f"Dense_{i}"]["bias"])
+    out["mu.weight"] = t(p["mu"]["kernel"]).T
+    out["mu.bias"] = t(p["mu"]["bias"])
+    out["value_head.weight"] = t(p["value"]["kernel"]).T
+    out["value_head.bias"] = t(p["value"]["bias"])
+    out["logstd"] = t(p["logstd"])
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def _jax_rms(rms) -> Optional[Dict[str, torch.Tensor]]:
+    """Fold each field with its Neumaier carry into float64."""
+    if rms is None:
+        return None
+
+    def full(name):
+        v = np.asarray(_get(rms, name), np.float64)
+        try:
+            c = _get(rms, name + "_c")
+        except (KeyError, AttributeError):
+            c = None
+        if c is not None:
+            v = v + np.asarray(c, np.float64)
+        return torch.from_numpy(np.asarray(v))
+
+    return {"mean": full("mean"), "var": full("var"),
+            "count": full("count").reshape(())}
+
+
+def from_jax(params_np, obs_rms_np, value_rms_np, adam_np=None,
+             lr: Optional[float] = None) -> Dict[str, Any]:
+    """A JAX TrainState's pieces (numpy pytrees: the flax params, the
+    RunningMeanStd tuples, and optax's ScaleByAdamState with ``count``,
+    ``mu``, ``nu``) -> a native checkpoint dict for ``restore``."""
+    ck: Dict[str, Any] = {
+        "model": _jax_params_to_ref(params_np),
+        "obs_rms": _jax_rms(obs_rms_np),
+        "value_rms": _jax_rms(value_rms_np),
+        "epoch": 0, "frame": 0,
+    }
+    if adam_np is not None:
+        ck["adam"] = {
+            "m": _jax_params_to_ref(_get(adam_np, "mu")),
+            "v": _jax_params_to_ref(_get(adam_np, "nu")),
+            "count": torch.tensor([float(np.asarray(_get(adam_np, "count")))],
+                                  dtype=torch.float32)}
+    if lr is not None:
+        ck["lr"] = float(lr)
+    return ck

@@ -1,0 +1,162 @@
+"""PPO with the rollout and the update phase each in one fused kernel
+(counterpart of airgym_tpu/rl/fused_ppo.py, Hovering).
+
+``FusedHoveringPPO`` runs the whole rollout through
+``ops/fused_rollout.rollout_fused_policy`` (csrc/fused_rollout.cu) and the
+whole update phase through ``ops/fused_update.fused_update``
+(csrc/fused_update.cu); GAE, the running stats and the dataset stay plain
+PyTorch (rl/ppo.py). On CPU tensors both ops run their plain versions.
+
+The Balloon and Tracking variants are ROADMAP.md queue A item 10 / queue
+B item 4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from airgym_tpu_torch.ops import fused_hovering as fh
+from airgym_tpu_torch.ops import fused_rollout as fr
+from airgym_tpu_torch.ops import fused_update as fu
+from airgym_tpu_torch.physics import quadrotor as qd
+from airgym_tpu_torch.rl import ppo as ppo_mod
+
+
+class FusedHoveringPPO(ppo_mod.PPO):
+    """Requirements: hovering task, ctl_mode 'rate', num_envs % 1024 == 0,
+    the shared-trunk fixed-sigma [64,128,64] elu network."""
+
+    fused_task = "hovering"
+
+    def __init__(self, task, cfg=ppo_mod.PPOConfig(), network_kw=None):
+        if task.task_name != self.fused_task or task.cfg.ctl_mode != "rate":
+            raise NotImplementedError(
+                f"the fused trainer covers hovering / rate only, got "
+                f"{task.task_name} / {task.cfg.ctl_mode}: ROADMAP.md queue A "
+                f"item 10 (balloon, tracking) and item 3b (other modes)")
+        if task.cfg.num_envs % fr.TILE:
+            raise NotImplementedError(
+                f"num_envs={task.cfg.num_envs} is not a multiple of "
+                f"{fr.TILE}: the scan rollout for other counts is ROADMAP.md "
+                f"queue A item 7b")
+        net = dict(network_kw or {})
+        if tuple(net.get("units", fr.UNITS)) != fr.UNITS \
+                or net.get("activation", "elu") != "elu":
+            raise NotImplementedError(
+                f"the fused kernels run the [64,128,64] elu net, got "
+                f"{net}: other nets need the scan rollout and the non-fused "
+                f"update, ROADMAP.md queue A item 7b")
+        self._motor_alpha = qd.motor_alpha(task.params)
+        super().__init__(task, cfg, network_kw=network_kw)
+
+    def rollout(self, ts: ppo_mod.TrainState, seed: Optional[int] = None):
+        cfg = self.cfg
+        if seed is None:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=ts.seed_generator))
+        pack = fr.pack_policy(ts.model, ts.obs_rms)
+        packed = fh.pack_state(ts.env_state.core)
+        packed_out, rec = fr.rollout_fused_policy(
+            packed, pack, seed, cfg.horizon,
+            obs_noise=self.task.cfg.obs_noise, task=self.fused_task,
+            motor_alpha=self._motor_alpha)
+
+        # unpack the trajectory record [H, 31, N]
+        k = fr.OBS
+        tp = lambda a: torch.transpose(a, 1, 2)           # -> [H, N, k]
+        obs = tp(rec[:, 0:k])
+        rewards = rec[:, k + 10]
+        dones = rec[:, k + 11] > 0.5
+        sigma = torch.exp(ts.model.logstd.detach())
+        mus = tp(rec[:, k + 6:k + 10])
+        traj = ppo_mod.Rollout(
+            obs=obs, prenorm=obs, actions=tp(rec[:, k:k + 4]),
+            neglogp=rec[:, k + 4], values=rec[:, k + 5], mus=mus,
+            sigmas=sigma.expand(mus.shape), rewards=rewards, dones=dones,
+            timeouts=rec[:, k + 12] > 0.5)
+
+        # episode bookkeeping
+        ep_ret, ep_len = ts.ep_return, ts.ep_length
+        last_ret, last_len = ts.last_ep_return, ts.last_ep_length
+        for t in range(cfg.horizon):
+            d = dones[t]
+            ep_ret = ep_ret + rewards[t]
+            ep_len = ep_len + 1.0
+            last_ret = torch.where(d, ep_ret, last_ret)
+            last_len = torch.where(d, ep_len, last_len)
+            alive = 1.0 - d.to(ep_ret.dtype)
+            ep_ret, ep_len = ep_ret * alive, ep_len * alive
+
+        # rebuild the env state (the vel-loop fields are untouched in rate)
+        old = ts.env_state.core
+        root = fh.unpack_root(packed_out)
+        core = old._replace(
+            root=root,
+            ctrl=old.ctrl._replace(rate_int=packed_out[13:16].T,
+                                   prev_rate=packed_out[16:19].T),
+            progress=packed_out[19].to(torch.int32),
+            reset_buf=packed_out[20] > 0.5,
+            pre_actions=packed_out[21:25].T,
+            rotors=(packed_out[25:29].T if old.rotors is not None else None))
+        env_state = ts.env_state._replace(core=core)
+
+        # bootstrap value from the post-rollout observation (GAE zeroes it
+        # for done envs, so the post-reset state is never consumed)
+        last_obs = self.task.state_obs18(root, ts.generator) - self.task.target
+        with torch.no_grad():
+            _, _, last_value = ts.model(last_obs, ts.obs_rms)
+
+        ts = dataclasses.replace(
+            ts, env_state=env_state, obs=last_obs, ep_return=ep_ret,
+            ep_length=ep_len, last_ep_return=last_ret,
+            last_ep_length=last_len)
+        return ts, traj, last_value[:, 0], {"reward": torch.mean(rewards)}
+
+    def _can_fuse_update(self, dataset) -> bool:
+        # the reference's rules minus its TPU VMEM cap on the batch size
+        # (the net's shape is checked at construction)
+        cfg = self.cfg
+        return (not isinstance(dataset["obs"], dict)
+                and not cfg.clip_value
+                and not cfg.use_smooth_clamp
+                and cfg.lr_schedule in ("adaptive", "fixed", "linear")
+                and cfg.normalize_input
+                and self.batch_size % self.num_minibatches == 0)
+
+    def update(self, ts: ppo_mod.TrainState, dataset):
+        if not self._can_fuse_update(dataset):
+            return super().update(ts, dataset)
+        cfg = self.cfg
+        if cfg.lr_schedule == "linear":
+            mul = max(0.0, 1.0 - ts.epoch / cfg.max_epochs)
+            ts = dataclasses.replace(ts, lr=torch.tensor(
+                max(cfg.min_lr, cfg.learning_rate * mul), dtype=torch.float32,
+                device=self.device))
+
+        obs_n = ts.obs_rms.normalize(dataset["obs"])
+        params = dict(ts.model.named_parameters())
+        kcfg = dict(e_clip=cfg.e_clip, critic_coef=cfg.critic_coef,
+                    bounds_coef=cfg.bounds_loss_coef,
+                    entropy_coef=cfg.entropy_coef,
+                    truncate_grads=cfg.truncate_grads,
+                    grad_norm=cfg.grad_norm,
+                    adaptive_lr=cfg.lr_schedule == "adaptive",
+                    kl_threshold=cfg.kl_threshold,
+                    min_lr=cfg.min_lr, max_lr=cfg.max_lr)
+        w2, m2, v2, lr2, t2, metrics = fu.fused_update(
+            obs_n, dataset["actions"], dataset["adv"], dataset["returns"],
+            dataset["neglogp"], dataset["mus_init"],
+            dataset["sigmas_init"][0].reshape(-1, 1).contiguous(),
+            fu.pack_update(params), fu.pack_update(ts.adam["m"]),
+            fu.pack_update(ts.adam["v"]), ts.lr.reshape(1),
+            ts.adam["count"].reshape(1), nmb=self.num_minibatches,
+            mini_epochs=cfg.mini_epochs, cfg=kcfg)
+
+        with torch.no_grad():
+            for name, value in fu.unpack_update(w2).items():
+                params[name].copy_(value)
+        adam = {"m": fu.unpack_update(m2), "v": fu.unpack_update(v2),
+                "count": t2}
+        return dataclasses.replace(ts, adam=adam, lr=lr2[0]), metrics

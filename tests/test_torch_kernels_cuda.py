@@ -1,0 +1,86 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU and nvcc: they are marked ``cuda`` and skip
+elsewhere (the decision is made inside the fixture). ``chip_smoke.py``
+runs the same comparison at the main path's full shapes."""
+import pytest
+import torch
+
+from airgym_tpu_torch.ops import fused_rollout as fr
+from airgym_tpu_torch.ops import fused_update as fu
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _model_and_stats(device):
+    from airgym_tpu_torch.models.actor_critic import ActorCritic
+    from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+    g = torch.Generator().manual_seed(0)
+    model = ActorCritic(18, 4, generator=g).to(device)
+    rms = RunningMeanStd.create((18,), device).update(
+        torch.randn((512, 18), device=device))
+    return model, rms
+
+
+def test_rollout_kernel_matches_plain(device):
+    from airgym_tpu_torch import envs
+    from airgym_tpu_torch.ops import fused_hovering as fh
+    task = envs.make_task("hovering", num_envs=2048, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = task.initial_state(gen)
+    model, rms = _model_and_stats(device)
+    pack = fr.pack_policy(model, rms)
+    packed = fh.pack_state(state.core)
+    packed[19, :64] = 2396.0
+    before = fr.KERNEL.launches
+    out_k, rec_k = fr.rollout_fused_policy(packed, pack, 42, 8)
+    assert fr.KERNEL.launches == before + 1
+    out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, 42, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(rec_k[:, 29:31], rec_p[:, 29:31])
+    torch.testing.assert_close(rec_k, rec_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("B,nmb", [(4096, 4), (1000, 10)])
+def test_update_kernel_matches_plain(device, B, nmb):
+    """(1000, 10): minibatches of 100 samples, a ragged last block."""
+    model, rms = _model_and_stats(device)
+    g = torch.Generator(device=device).manual_seed(2)
+    obs = torch.randn((B, 18), generator=g, device=device)
+    with torch.no_grad():
+        mu0, sigma, _ = model(obs, rms)
+    act = mu0 + sigma * torch.randn(mu0.shape, generator=g, device=device)
+    logstd = model.logstd.detach()
+    d = (act - mu0) / sigma
+    nlp = 0.5 * (d * d).sum(-1) + 0.5 * 1.8378770664093453 * 4 + logstd.sum()
+    named = dict(model.named_parameters())
+    zero = {k: torch.zeros_like(v) for k, v in named.items()}
+    cfg = dict(e_clip=0.2, critic_coef=2.0, bounds_coef=1e-4,
+               entropy_coef=0.0, truncate_grads=True, grad_norm=1.5,
+               adaptive_lr=True, kl_threshold=0.008, min_lr=1e-6,
+               max_lr=1e-2)
+    args = (rms.normalize(obs), act, torch.randn((B,), generator=g,
+                                                 device=device),
+            torch.randn((B,), generator=g, device=device), nlp, mu0,
+            torch.exp(logstd).reshape(-1, 1), fu.pack_update(named),
+            fu.pack_update(zero), fu.pack_update(zero),
+            torch.tensor([3e-4], device=device),
+            torch.zeros(1, device=device))
+    k = fu.fused_update(*args, nmb=nmb, mini_epochs=2, cfg=cfg)
+    p = fu.fused_update_plain(*args, nmb=nmb, mini_epochs=2, cfg=cfg)
+    for a, b in zip(k[0], p[0]):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) < 2e-3 * scale + 1e-5
+    torch.testing.assert_close(k[3], p[3], rtol=1e-6, atol=0)
+    assert float(k[4]) == float(p[4]) == 2.0 * nmb
+    for key in fu.METRICS:
+        torch.testing.assert_close(k[5][key], p[5][key], rtol=5e-3,
+                                   atol=5e-4)
