@@ -1,12 +1,10 @@
-// Device functions shared by the port's fused rollout kernels: the
-// counter-based hash RNG, the euler -> quaternion helper and the
-// polynomial transcendentals.
+// Device functions shared by the port's kernels: the counter-based hash
+// RNG, the euler -> quaternion helper and the polynomial transcendentals.
 //
 // They reproduce airgym_tpu/ops/fused_hovering.py (_mix, _make_uniform,
 // _quat_from_euler) and airgym_tpu/ops/transcendental.py bit for bit where
 // the arithmetic is integer (the RNG) and to float32 rounding elsewhere.
-// fused_rollout.cu uses them now; the env-only hovering kernel and the
-// balloon / tracking variants will use them too.
+// The env step built on them is quad_step.cuh.
 #pragma once
 
 #include <cstdint>

@@ -11,15 +11,22 @@
 // later mini-epochs from the previous visit), the adaptive-KL lr at each
 // mini-epoch end, and metrics averaged over the last mini-epoch.
 //
-// Bound on the card (default trainer: B = 98,304, mb = 2048, 48
+// One source, two instances: 18 observation features (Hovering, Balloon)
+// and 48 (Tracking); the width is a template parameter.
+//
+// Bound on the card, at 18 features (Hovering: B = 98,304, mb = 2048, 48
 // minibatches, 5 mini-epochs): ~104.8 kFLOP per sample (forward 17,856
 // MAC, weight gradients 17,856 MAC, input gradients 16,704 MAC), 51.5
-// GFLOP per epoch in float32, 0.77 ms at 67 TFLOP/s of FP32. The data is
-// read once per mini-epoch (11.4 MB) and the parameters and moments
-// (3 x 18,121 floats) move ~0.4 MB per step. FP32 compute-bound.
+// GFLOP per epoch in float32, 0.77 ms at 67 TFLOP/s of FP32; Balloon
+// (B = 131,072, 64 minibatches) 68.7 GFLOP, 1.03 ms. At 48 features
+// (Tracking, B = 98,304) ~112.5 kFLOP per sample, 55.3 GFLOP, 0.83 ms.
+// The data is read once per mini-epoch (11-24 MB) and the parameters and
+// moments (3 x 18,121 or 20,041 floats) move ~0.4 MB per step. FP32
+// compute-bound.
 //
-// Design (simple first): the 18,121 params and two moments (217 KB) do
-// not fit one block's shared memory beside a minibatch, and the 240 steps
+// Design (simple first): the 18,121 params and two moments (217 KB; at 48
+// features 20,041 and 240 KB) do not fit one block's shared memory beside
+// a minibatch, and the 240 steps
 // form a strict chain, so each Adam step is two launches:
 //   (a) update_grad_kernel: one block per 32 samples stages the params in
 //       shared memory, runs forward + backward for its samples and writes
@@ -37,30 +44,34 @@
 
 namespace {
 
-constexpr int OBS = 18, ACT = 4, H0 = 64, H1 = 128, H2 = 64, HEAD = ACT + 1;
-
-// flat UpdatePack offsets (airgym_tpu_torch/ops/fused_update.py)
-constexpr int O_W0 = 0;
-constexpr int O_B0 = O_W0 + H0 * OBS;
-constexpr int O_W1 = O_B0 + H0;
-constexpr int O_B1 = O_W1 + H1 * H0;
-constexpr int O_W2 = O_B1 + H1;
-constexpr int O_B2 = O_W2 + H2 * H1;
-constexpr int O_WH = O_B2 + H2;
-constexpr int O_BH = O_WH + HEAD * H2;
-constexpr int O_LOGSTD = O_BH + HEAD;
-constexpr int NP = O_LOGSTD + ACT;              // 18,121
-constexpr int NP_PAD = (NP + 3) / 4 * 4;
+constexpr int ACT = 4, H0 = 64, H1 = 128, H2 = 64, HEAD = ACT + 1;
 constexpr int N_MET = 8;                        // a, c, b, kl, clip partial sums
-constexpr int PSTRIDE = NP_PAD + N_MET;         // floats per block of partials
-
 constexpr int S = 32;                           // samples per block
 constexpr int SP = S + 1;                       // padded column stride
 constexpr int NT = 256;                         // threads of (a)
 constexpr int NT_STEP = 1024;                   // threads of (b)
 constexpr int N_RED = 5 + ACT;                  // per-sample scalars reduced in (a)
-constexpr size_t GRAD_SMEM = (size_t)(NP_PAD + SP * (OBS + 2 * (H0 + H1 + H2) + 2 * HEAD)
-                                      + N_RED * S) * sizeof(float);
+
+// flat UpdatePack offsets at OBS features (airgym_tpu_torch/ops/fused_update.py)
+template <int OBS>
+struct Lay {
+  static constexpr int O_W0 = 0;
+  static constexpr int O_B0 = O_W0 + H0 * OBS;
+  static constexpr int O_W1 = O_B0 + H0;
+  static constexpr int O_B1 = O_W1 + H1 * H0;
+  static constexpr int O_W2 = O_B1 + H1;
+  static constexpr int O_B2 = O_W2 + H2 * H1;
+  static constexpr int O_WH = O_B2 + H2;
+  static constexpr int O_BH = O_WH + HEAD * H2;
+  static constexpr int O_LOGSTD = O_BH + HEAD;
+  static constexpr int NP = O_LOGSTD + ACT;     // 18,121 / 20,041
+  static constexpr int NP_PAD = (NP + 3) / 4 * 4;
+  static constexpr int PSTRIDE = NP_PAD + N_MET;  // floats per block of partials
+  // 145 KB at 18 features, 157 KB at 48: under the 227 KB opt-in
+  static constexpr size_t GRAD_SMEM =
+      (size_t)(NP_PAD + SP * (OBS + 2 * (H0 + H1 + H2) + 2 * HEAD) + N_RED * S)
+      * sizeof(float);
+};
 
 constexpr float B1 = 0.9f, B2 = 0.999f, ADAM_EPS = 1e-8f;
 constexpr float ONE_M_B1 = (float)(1.0 - 0.9), ONE_M_B2 = (float)(1.0 - 0.999);
@@ -86,7 +97,7 @@ struct UpdateArgs {
   const float* adv;    // [B]
   const float* ret;    // [B]
   const float* nlp_old;  // [B]
-  int batch, nmb, mini_epochs, truncate_grads, adaptive_lr;
+  int obs_dim, batch, nmb, mini_epochs, truncate_grads, adaptive_lr;
   float clip_lo, clip_hi, e_clip;
   float inv_mb, critic_inv, bounds_inv;   // 1/mb, coef/mb
   float half_critic, bounds_coef, entropy_coef;
@@ -149,8 +160,11 @@ __device__ __forceinline__ void bgrad(const float* __restrict__ W,
 }
 
 // (a) forward + backward of one 32-sample slice of minibatch i_mb
+template <int OBS>
 __global__ void __launch_bounds__(NT)
 update_grad_kernel(UpdateArgs a, int i_mb, int mb) {
+  using L = Lay<OBS>;
+  constexpr int NP_PAD = L::NP_PAD, O_LOGSTD = L::O_LOGSTD;
   extern __shared__ __align__(16) float smem[];
   float* w = smem;
   float* x = w + NP_PAD;
@@ -168,21 +182,21 @@ update_grad_kernel(UpdateArgs a, int i_mb, int mb) {
   const int first = blockIdx.x * S;           // within the minibatch
   const int cnt = min(S, mb - first);
   const size_t base = (size_t)i_mb * mb + first;
-  float* part = a.partials + (size_t)blockIdx.x * PSTRIDE;
+  float* part = a.partials + (size_t)blockIdx.x * L::PSTRIDE;
 
-  for (int i = tid; i < NP; i += NT) w[i] = a.params[i];
+  for (int i = tid; i < L::NP; i += NT) w[i] = a.params[i];
   for (int idx = tid; idx < OBS * S; idx += NT) {
     const int f = idx / S, s = idx % S;
     x[f * SP + s] = s < cnt ? a.obs[(base + s) * OBS + f] : 0.0f;
   }
   __syncthreads();
-  dense<OBS, H0, true>(w + O_W0, w + O_B0, x, h0);
+  dense<OBS, H0, true>(w + L::O_W0, w + L::O_B0, x, h0);
   __syncthreads();
-  dense<H0, H1, true>(w + O_W1, w + O_B1, h0, h1);
+  dense<H0, H1, true>(w + L::O_W1, w + L::O_B1, h0, h1);
   __syncthreads();
-  dense<H1, H2, true>(w + O_W2, w + O_B2, h1, h2);
+  dense<H1, H2, true>(w + L::O_W2, w + L::O_B2, h1, h2);
   __syncthreads();
-  dense<H2, HEAD, false>(w + O_WH, w + O_BH, h2, hd);
+  dense<H2, HEAD, false>(w + L::O_WH, w + L::O_BH, h2, hd);
   __syncthreads();
 
   // per-sample losses and head gradients (one thread per sample)
@@ -257,21 +271,25 @@ update_grad_kernel(UpdateArgs a, int i_mb, int mb) {
     if (tid < 5) part[NP_PAD + tid] = acc;
     else part[O_LOGSTD + tid - 5] = acc;
   }
-  wgrad<H2, HEAD>(dout, h2, part + O_WH, part + O_BH);
-  bgrad<H2, HEAD>(w + O_WH, dout, h2, dz2);
+  wgrad<H2, HEAD>(dout, h2, part + L::O_WH, part + L::O_BH);
+  bgrad<H2, HEAD>(w + L::O_WH, dout, h2, dz2);
   __syncthreads();
-  wgrad<H1, H2>(dz2, h1, part + O_W2, part + O_B2);
-  bgrad<H1, H2>(w + O_W2, dz2, h1, dz1);
+  wgrad<H1, H2>(dz2, h1, part + L::O_W2, part + L::O_B2);
+  bgrad<H1, H2>(w + L::O_W2, dz2, h1, dz1);
   __syncthreads();
-  wgrad<H0, H1>(dz1, h0, part + O_W1, part + O_B1);
-  bgrad<H0, H1>(w + O_W1, dz1, h0, dz0);
+  wgrad<H0, H1>(dz1, h0, part + L::O_W1, part + L::O_B1);
+  bgrad<H0, H1>(w + L::O_W1, dz1, h0, dz0);
   __syncthreads();
-  wgrad<OBS, H0>(dz0, x, part + O_W0, part + O_B0);
+  wgrad<OBS, H0>(dz0, x, part + L::O_W0, part + L::O_B0);
 }
 
 // (b) reduce over blocks, clip, Adam, metrics and the adaptive lr
+template <int OBS>
 __global__ void __launch_bounds__(NT_STEP)
 update_step_kernel(UpdateArgs a, int i_mb, int nblk, int mb) {
+  using L = Lay<OBS>;
+  constexpr int NP = L::NP, NP_PAD = L::NP_PAD, PSTRIDE = L::PSTRIDE;
+  constexpr int O_LOGSTD = L::O_LOGSTD;
   __shared__ float red[NT_STEP];
   __shared__ float sh[4];                      // lr, bc1, bc2, scale
   const int tid = threadIdx.x;
@@ -346,6 +364,26 @@ update_step_kernel(UpdateArgs a, int i_mb, int nblk, int mb) {
   }
 }
 
+template <int OBS>
+int launch(const UpdateArgs& a, cudaStream_t st) {
+  const int mb = a.batch / a.nmb;
+  const int nblk = (mb + S - 1) / S;
+  const size_t smem = Lay<OBS>::GRAD_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      update_grad_kernel<OBS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int e = 0; e < a.mini_epochs; ++e) {
+    for (int i = 0; i < a.nmb; ++i) {
+      update_grad_kernel<OBS><<<nblk, NT, smem, st>>>(a, i, mb);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      update_step_kernel<OBS><<<1, NT_STEP, 0, st>>>(a, i, nblk, mb);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 AIRGYM_EXPORT_ERROR_STRING
@@ -355,22 +393,15 @@ AIRGYM_EXPORT_ERROR_STRING
 extern "C" int fused_update_launch(const UpdateArgs* args, void* stream) {
   const UpdateArgs a = *args;
   if (a.nmb <= 0 || a.batch % a.nmb != 0) return (int)cudaErrorInvalidValue;
-  const int mb = a.batch / a.nmb;
-  const int nblk = (mb + S - 1) / S;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      update_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GRAD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  for (int e = 0; e < a.mini_epochs; ++e) {
-    for (int i = 0; i < a.nmb; ++i) {
-      update_grad_kernel<<<nblk, NT, GRAD_SMEM, st>>>(a, i, mb);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      update_step_kernel<<<1, NT_STEP, 0, st>>>(a, i, nblk, mb);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
+  switch (a.obs_dim) {
+    case 18: return launch<18>(a, st);
+    case 48: return launch<48>(a, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
 
-extern "C" int fused_update_partials_stride() { return PSTRIDE; }
+// Floats per block of partial sums at `obs` features (0 if not built).
+extern "C" int fused_update_partials_stride(int obs) {
+  return obs == 18 ? Lay<18>::PSTRIDE : (obs == 48 ? Lay<48>::PSTRIDE : 0);
+}

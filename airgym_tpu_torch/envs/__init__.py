@@ -1,19 +1,23 @@
 """Task registry (counterpart of airgym_tpu/envs/__init__.py).
 
-This slice ports Hovering; every other task of the JAX package is still
-to come (ROADMAP.md queue A items 10-13) and ``make_task`` refuses it.
+Ported: Hovering, Balloon and Tracking. Every other task of the JAX
+package is still to come (ROADMAP.md queue A items 11-13) and
+``make_task`` refuses it.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from airgym_tpu_torch import device as device_mod
+from airgym_tpu_torch.envs.balloon import Balloon, BalloonCfg
 from airgym_tpu_torch.envs.hovering import Hovering, HoveringCfg
+from airgym_tpu_torch.envs.tracking import Tracking, TrackingCfg
 
-_REGISTRY = {"hovering": (Hovering, HoveringCfg)}
+_REGISTRY = {"hovering": (Hovering, HoveringCfg),
+             "balloon": (Balloon, BalloonCfg),
+             "tracking": (Tracking, TrackingCfg)}
 
 _NOT_PORTED = {
-    "balloon": "queue A item 10", "tracking": "queue A item 10",
     "avoid": "queue A item 12", "planning": "queue A item 12",
     "customized": "queue A item 11", "maplanning": "queue A item 13",
     "depthgen": "queue A item 13",

@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from airgym_tpu_torch.control import px4
@@ -63,11 +64,21 @@ class BaseEnvCfg:
         return px4.num_actions(self.ctl_mode)
 
 
+# Narrowed rate limits of the vision-task lineage (reference
+# customized.py:109-114: body rates +-1 rad/s instead of hovering's +-6).
+NARROW_RATE_LIMITS = ((-1.0, -1.0, -1.0, 0.0), (1.0, 1.0, 1.0, 1.0))
+
+
 class QuadEnvCore:
     """Action remap, controller + physics stepping, state observations
     with sensor noise, and the common reset randomization."""
 
     task_name = "base"
+    # per-task action limits, keyed by ctl_mode -> (lower, upper); a mode
+    # not listed takes the controller library's default
+    action_limit_overrides: Dict[str, Tuple[Any, Any]] = {}
+    # True for tasks whose step info carries a per-step "success" flag
+    has_success = False
 
     def __init__(self, cfg: BaseEnvCfg, device: torch.device):
         if cfg.ctl_mode != "rate":
@@ -78,9 +89,17 @@ class QuadEnvCore:
         self.device = device
         self.params = qd.x152b_params(dt=cfg.dt, motor_tau=cfg.motor_tau)
         self.gains = px4.CascadeGains()
-        lo, hi = px4.action_limits(cfg.ctl_mode)
+        lo, hi = self.action_limits(cfg.ctl_mode)
         self._act_lo = torch.tensor(lo, dtype=cfg.dtype, device=device)
         self._act_hi = torch.tensor(hi, dtype=cfg.dtype, device=device)
+
+    def action_limits(self, mode: str):
+        """(lower, upper) for this task: the per-mode default unless the
+        task overrides that mode."""
+        ov = self.action_limit_overrides.get(mode)
+        if ov is not None:
+            return np.asarray(ov[0], np.float64), np.asarray(ov[1], np.float64)
+        return px4.action_limits(mode)
 
     def remap_actions(self, actions: torch.Tensor) -> torch.Tensor:
         """[-1,1] policy actions -> controller units: thrust 0.5+0.5a, then

@@ -11,6 +11,7 @@ one raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -39,14 +40,15 @@ class CudaKernel:
     """One CUDA source built into its own shared library.
 
     ``launches`` counts the CUDA kernel launches the wrappers made through
-    this library; nothing else touches it.
+    this library, by variant (a task, an observation width); nothing else
+    touches it.
     """
 
     def __init__(self, name: str, entry_points: Dict[str, list]):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.entry_points = entry_points
-        self.launches = 0
+        self.launches = collections.Counter()
         self.build_log = ""
         self._lib = None
 

@@ -25,8 +25,8 @@ import torch
 from airgym_tpu_torch.kernels import build
 
 ACT = 4
-OBS = 18
 H0, H1, H2 = 64, 128, 64
+KERNEL_OBS = (18, 48)        # widths csrc/fused_update.cu is built for
 B1, B2, EPS = 0.9, 0.999, 1e-8
 LOG2PI = float(math.log(2.0 * math.pi))
 METRICS = ("loss", "kl", "a_loss", "c_loss", "b_loss", "entropy",
@@ -35,7 +35,7 @@ METRICS = ("loss", "kl", "a_loss", "c_loss", "b_loss", "entropy",
 
 class UpdatePack(NamedTuple):
     """Weights (or Adam moments), feature-major; head = [mu(4); value]."""
-    w0: torch.Tensor        # [H0, OBS]
+    w0: torch.Tensor        # [H0, obs]
     b0: torch.Tensor        # [H0, 1]
     w1: torch.Tensor        # [H1, H0]
     b1: torch.Tensor
@@ -47,10 +47,18 @@ class UpdatePack(NamedTuple):
 
 
 _FIELDS = list(UpdatePack._fields)
-_SHAPES = dict(w0=(H0, OBS), b0=(H0, 1), w1=(H1, H0), b1=(H1, 1),
-               w2=(H2, H1), b2=(H2, 1), wh=(ACT + 1, H2), bh=(ACT + 1, 1),
-               logstd=(ACT, 1))
-NP = sum(math.prod(s) for s in _SHAPES.values())      # 18,121
+
+
+def shapes(obs: int) -> Dict[str, tuple]:
+    """Field shapes at ``obs`` observation features."""
+    return dict(w0=(H0, obs), b0=(H0, 1), w1=(H1, H0), b1=(H1, 1),
+                w2=(H2, H1), b2=(H2, 1), wh=(ACT + 1, H2), bh=(ACT + 1, 1),
+                logstd=(ACT, 1))
+
+
+def num_params(obs: int) -> int:
+    """Flat parameter count: 18,121 at 18 features, 20,041 at 48."""
+    return sum(math.prod(s) for s in shapes(obs).values())
 
 
 def pack_update(tree: Dict[str, torch.Tensor]) -> UpdatePack:
@@ -86,10 +94,10 @@ def flatten(pack: UpdatePack) -> torch.Tensor:
     return torch.cat([x.reshape(-1) for x in pack]).contiguous()
 
 
-def unflatten(flat: torch.Tensor) -> UpdatePack:
+def unflatten(flat: torch.Tensor, obs: int) -> UpdatePack:
     out, off = [], 0
     for f in _FIELDS:
-        shape = _SHAPES[f]
+        shape = shapes(obs)[f]
         size = math.prod(shape)
         out.append(flat[off:off + size].reshape(shape))
         off += size
@@ -102,7 +110,8 @@ class _UpdateArgs(ctypes.Structure):
         "params", "m", "v", "lr", "count", "acc", "metrics", "mus", "sig",
         "partials", "grad", "obs", "act", "adv", "ret", "nlp_old")]
         + [(n, ctypes.c_int) for n in (
-            "batch", "nmb", "mini_epochs", "truncate_grads", "adaptive_lr")]
+            "obs_dim", "batch", "nmb", "mini_epochs", "truncate_grads",
+            "adaptive_lr")]
         + [(n, ctypes.c_float) for n in (
             "clip_lo", "clip_hi", "e_clip", "inv_mb", "critic_inv",
             "bounds_inv", "half_critic", "bounds_coef", "entropy_coef",
@@ -111,7 +120,7 @@ class _UpdateArgs(ctypes.Structure):
 
 KERNEL = build.CudaKernel("fused_update", {
     "fused_update_launch": [ctypes.POINTER(_UpdateArgs), ctypes.c_void_p],
-    "fused_update_partials_stride": []})
+    "fused_update_partials_stride": [ctypes.c_int]})
 
 _SAMPLES_PER_BLOCK = 32      # S in csrc/fused_update.cu
 
@@ -120,7 +129,8 @@ def _check(obs_n, actions, adv, returns, neglogp, mus0, sigma0, packs,
            lr, count, nmb):
     dev = obs_n.device
     B = obs_n.shape[0]
-    want = {"obs_n": (obs_n, (B, OBS)), "actions": (actions, (B, ACT)),
+    obs = obs_n.shape[1] if obs_n.dim() == 2 else -1
+    want = {"obs_n": (obs_n, (B, obs)), "actions": (actions, (B, ACT)),
             "adv": (adv, (B,)), "returns": (returns, (B,)),
             "neglogp": (neglogp, (B,)), "mus0": (mus0, (B, ACT)),
             "sigma0": (sigma0, (ACT, 1)), "lr": (lr, (1,)),
@@ -130,13 +140,16 @@ def _check(obs_n, actions, adv, returns, neglogp, mus0, sigma0, packs,
                 or x.device != dev:
             raise ValueError(f"{name}: want float32 {shape} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if tuple(packs[0].w0.shape[1:]) != (obs,):
+        raise ValueError(f"obs_n has {obs} features but UpdatePack.w0 is "
+                         f"{tuple(packs[0].w0.shape)}")
     for pack in packs:
-        for f in _FIELDS:
+        for f, shape in shapes(obs).items():
             x = getattr(pack, f)
-            if tuple(x.shape) != _SHAPES[f] or x.dtype != torch.float32 \
+            if tuple(x.shape) != shape or x.dtype != torch.float32 \
                     or x.device != dev:
                 raise ValueError(f"UpdatePack.{f}: want float32 "
-                                 f"{_SHAPES[f]} on {dev}")
+                                 f"{shape} on {dev}")
     if nmb <= 0 or B % nmb:
         raise ValueError(f"batch {B} does not split into {nmb} minibatches")
 
@@ -146,7 +159,9 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
                  lr, count, *, nmb: int, mini_epochs: int, cfg: dict):
     """Run the whole update phase.
 
-    obs_n [B, OBS] normalized observations; actions [B, ACT];
+    obs_n [B, obs] normalized observations (the kernel is built for
+    obs in ``KERNEL_OBS``, the plain version takes any width);
+    actions [B, ACT];
     adv/returns/neglogp [B]; mus0 [B, ACT] rollout means (first-visit KL
     reference); sigma0 [ACT, 1] rollout sigma; pack/m_pack/v_pack weights
     and Adam moments; lr [1]; count [1] (Adam steps so far).
@@ -162,11 +177,14 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
                                   count, nmb=nmb, mini_epochs=mini_epochs,
                                   cfg=cfg)
     dev = obs_n.device
-    B = obs_n.shape[0]
+    B, obs = obs_n.shape
+    if obs not in KERNEL_OBS:
+        raise ValueError(f"the update kernel is built for {KERNEL_OBS} "
+                         f"observation features, got {obs}")
     mb = B // nmb
     nblk = -(-mb // _SAMPLES_PER_BLOCK)
     lib = KERNEL.lib()
-    stride = lib.fused_update_partials_stride()
+    stride = lib.fused_update_partials_stride(obs)
     f32 = dict(dtype=torch.float32, device=dev)
     params, m, v = flatten(pack), flatten(m_pack), flatten(v_pack)
     lr_b, count_b = lr.clone(), count.clone()
@@ -175,7 +193,7 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
     mus = mus0.contiguous().clone()
     sig = sigma0.reshape(1, ACT).repeat(nmb, 1).contiguous()
     partials = torch.empty(nblk * stride, **f32)
-    grad = torch.empty(NP, **f32)
+    grad = torch.empty(num_params(obs), **f32)
     data = [x.contiguous() for x in (obs_n, actions, adv, returns, neglogp)]
     ptr = lambda x: x.data_ptr()
     inv = 1.0 / mb
@@ -183,7 +201,7 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
         ptr(params), ptr(m), ptr(v), ptr(lr_b), ptr(count_b), ptr(acc),
         ptr(met), ptr(mus), ptr(sig), ptr(partials), ptr(grad),
         *[ptr(x) for x in data],
-        B, nmb, mini_epochs, int(bool(cfg["truncate_grads"])),
+        obs, B, nmb, mini_epochs, int(bool(cfg["truncate_grads"])),
         int(bool(cfg["adaptive_lr"])),
         1.0 - cfg["e_clip"], 1.0 + cfg["e_clip"], cfg["e_clip"], inv,
         cfg["critic_coef"] * inv, cfg["bounds_coef"] * inv,
@@ -191,18 +209,19 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
         cfg["grad_norm"], cfg["kl_threshold"], cfg["min_lr"], cfg["max_lr"])
     KERNEL.call("fused_update_launch", ctypes.byref(args),
                 torch.cuda.current_stream(dev).cuda_stream)
-    KERNEL.launches += 2 * nmb * mini_epochs
+    KERNEL.launches[f"obs{obs}"] += 2 * nmb * mini_epochs
     metrics = {k: met[i] for i, k in enumerate(METRICS)}
-    return (unflatten(params), unflatten(m), unflatten(v), lr_b, count_b,
-            metrics)
+    return (unflatten(params, obs), unflatten(m, obs), unflatten(v, obs),
+            lr_b, count_b, metrics)
 
 
 def fused_update_plain(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
                        pack: UpdatePack, m_pack: UpdatePack,
                        v_pack: UpdatePack, lr, count, *, nmb: int,
                        mini_epochs: int, cfg: dict):
-    """Plain PyTorch version of ``csrc/fused_update.cu``."""
-    B = obs_n.shape[0]
+    """Plain PyTorch version of ``csrc/fused_update.cu``; the
+    observation width comes from ``obs_n``."""
+    B, obs = obs_n.shape
     mb = B // nmb
     W = [x.clone() for x in pack]
     M = [x.clone() for x in m_pack]
@@ -213,7 +232,7 @@ def fused_update_plain(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
     log_b2 = torch.log(torch.tensor(B2, dtype=torch.float32,
                                     device=obs_n.device))
     fm = lambda x, f: x.reshape(nmb, mb, f).transpose(1, 2)
-    obs_d, act_d = fm(obs_n, OBS), fm(actions, ACT)
+    obs_d, act_d = fm(obs_n, obs), fm(actions, ACT)
     adv_d, ret_d, nlp_d = (x.reshape(nmb, 1, mb) for x in
                            (adv, returns, neglogp))
     mus_store = fm(mus0, ACT).clone()                  # [nmb, ACT, mb]

@@ -77,6 +77,9 @@ class TrainState:
     last_ep_length: torch.Tensor
     generator: torch.Generator
     seed_generator: torch.Generator
+    # [N] 1.0 iff the last finished episode ended by task success (tasks
+    # with has_success, e.g. Balloon's hit); None otherwise
+    last_ep_success: Optional[torch.Tensor] = None
 
 
 class Rollout(NamedTuple):
@@ -151,7 +154,8 @@ class PPO:
                             device=dev),
             epoch=0, frame=0, ep_return=zeros(), ep_length=zeros(),
             last_ep_return=zeros(), last_ep_length=zeros(),
-            generator=gen, seed_generator=seed_gen)
+            generator=gen, seed_generator=seed_gen,
+            last_ep_success=(zeros() if self.task.has_success else None))
 
     # ---------------------------------------------------------------- phases
 
@@ -233,6 +237,9 @@ class PPO:
         metrics["mean_reward"] = torch.mean(ts.last_ep_return)
         metrics["mean_ep_length"] = torch.mean(ts.last_ep_length)
         metrics["reward_raw_per_step"] = torch.mean(traj.rewards)
+        if ts.last_ep_success is not None:
+            # share of the last finished episodes that ended in success
+            metrics["success_rate"] = torch.mean(ts.last_ep_success)
         var_ret = torch.var(returns, unbiased=False)
         metrics["explained_variance"] = 1.0 - torch.var(
             returns - values, unbiased=False) / (var_ret + 1e-8)

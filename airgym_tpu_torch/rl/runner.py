@@ -5,7 +5,9 @@
 the task and the trainer, and runs the epochs: per logged epoch it prints
 the fps line and records the host-side metrics, and it writes native and
 .pth checkpoints at ``save_frequency``, on a new best reward after
-``save_best_after``, and at the end.
+``save_best_after``, and at the end. A task with a success notion
+(Balloon) also keeps a ``<name>_best_success`` checkpoint of the best
+logged success rate.
 
 Play / eval, the metrics writer and multi-GPU runs are ROADMAP.md queue A
 items 9b and 15.
@@ -22,11 +24,15 @@ import torch
 from airgym_tpu_torch import envs
 from airgym_tpu_torch.rl import checkpoint as ckpt
 from airgym_tpu_torch.rl import ppo as ppo_mod
-from airgym_tpu_torch.rl.fused_ppo import FusedHoveringPPO
+from airgym_tpu_torch.rl.fused_ppo import (FusedBalloonPPO, FusedHoveringPPO,
+                                           FusedTrackingPPO)
 
 LOGGED = ("mean_reward", "loss", "kl", "lr", "a_loss", "c_loss", "b_loss",
           "entropy", "clip_frac", "mean_ep_length", "reward_raw_per_step",
           "explained_variance")
+
+FUSED_TRAINERS = {"hovering": FusedHoveringPPO, "balloon": FusedBalloonPPO,
+                  "tracking": FusedTrackingPPO}
 
 
 def network_kw_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -118,8 +124,12 @@ class Runner:
                 "num_envs % 1024 == 0, shared-trunk fixed-sigma net) is "
                 "ported: ROADMAP.md queue A item 7b (scan rollout and "
                 "non-fused update)")
-        trainer = FusedHoveringPPO(task, ppo_config_from_params(self.params),
-                                   network_kw=network_kw)
+        if task_name not in FUSED_TRAINERS:
+            raise NotImplementedError(
+                f"task {task_name!r} has no fused trainer: the scan rollout "
+                f"is ROADMAP.md queue A item 7b")
+        trainer = FUSED_TRAINERS[task_name](
+            task, ppo_config_from_params(self.params), network_kw=network_kw)
         return task, trainer, seed
 
     def run(self, args: Dict[str, Any]):
@@ -143,6 +153,7 @@ class Runner:
         cuda = trainer.device.type == "cuda"
         history = []
         best_reward = -1e9
+        best_success = 0.0     # saved only once the task actually succeeds
         start = t_last = time.time()
         frames_since = 0
         epoch = ts.epoch
@@ -155,7 +166,8 @@ class Runner:
             if cuda:
                 torch.cuda.synchronize(trainer.device)
             now = time.time()
-            row = {k: float(m[k]) for k in LOGGED}
+            row = {k: float(m[k]) for k in LOGGED + ("success_rate",)
+                   if k in m}
             row.update(epoch=epoch, frames=ts.frame,
                        seconds=now - t_last,
                        fps=frames_since / max(now - t_last, 1e-9))
@@ -165,11 +177,18 @@ class Runner:
                   f"{cfg.max_epochs} frames: {ts.frame} "
                   f"mean_reward: {row['mean_reward']:.2f} "
                   f"loss: {row['loss']:.4f} kl: {row['kl']:.5f} "
-                  f"lr: {row['lr']:.2e}", flush=True)
+                  f"lr: {row['lr']:.2e}"
+                  + (f" success_rate: {row['success_rate']:.3f}"
+                     if "success_rate" in row else ""), flush=True)
             if epoch >= cfg.save_best_after and \
                     row["mean_reward"] > best_reward:
                 best_reward = row["mean_reward"]
                 self.save(ts, os.path.join(ck_dir, name), best_reward)
+            if epoch >= cfg.save_best_after and \
+                    row.get("success_rate", 0.0) > best_success:
+                best_success = row["success_rate"]
+                self.save(ts, os.path.join(ck_dir, f"{name}_best_success"),
+                          row["mean_reward"])
             if cfg.save_frequency and epoch % cfg.save_frequency == 0:
                 self.save(ts, os.path.join(ck_dir,
                                            f"last_{name}_ep_{epoch}"),
@@ -178,9 +197,12 @@ class Runner:
                 break
         last = os.path.join(ck_dir, f"last_{name}")
         self.save(ts, last, history[-1]["mean_reward"] if history else -1e9)
-        return ts, {"best_reward": best_reward, "epochs": epoch,
-                    "wall_time_s": time.time() - start, "run_dir": run_dir,
-                    "checkpoint": last + ".pt", "history": history}
+        info = {"best_reward": best_reward, "epochs": epoch,
+                "wall_time_s": time.time() - start, "run_dir": run_dir,
+                "checkpoint": last + ".pt", "history": history}
+        if task.has_success:
+            info["best_success"] = best_success
+        return ts, info
 
     @staticmethod
     def save(ts, path_no_ext: str, mean_reward: float = -1e9) -> None:

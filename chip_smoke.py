@@ -5,21 +5,34 @@
 
 Phases, each of which exits non-zero on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the default trainer from csrc/ with nvcc
-     (one process per source, started together);
-  3. hold the fused rollout kernel against its plain PyTorch version at
+  2. build every CUDA kernel from csrc/ with nvcc (one process per source,
+     started together) and print each kernel's registers and spills;
+  3. hold the Hovering rollout kernel against its plain PyTorch version at
      the main-path shape (4096 envs x 24 steps, obs noise on);
-  4. hold the fused update kernel against its plain version at the
-     main-path shape (B = 98,304, minibatch 2048, 48 minibatches,
+  4. hold the update kernel (18 features) against its plain version at
+     the main-path shape (B = 98,304, minibatch 2048, 48 minibatches,
      5 mini-epochs);
   5. train the default Hovering PPO (configs/ppo_hovering.yaml, 4096
      envs) for a few epochs through the runner, with the kernels' launch
      counters set to 0 just before and read just after, then save and
      reload the checkpoint;
-  6. time each kernel and its plain version with CUDA events (median of
-     20);
-  7. profile one steady epoch (device busy share, device time by
-     kernel) and print one JSON line listing every ported kernel.
+  6. time each kernel and its plain version with CUDA events;
+  7. profile one steady epoch (device busy share, device time by kernel);
+  8. hold the Balloon (4096 x 32) and Tracking (4096 x 24) rollout
+     kernels against their plain versions, with resets, time-outs and
+     balloon hits in the window, the update kernel at 18 features against
+     its plain version at Balloon's shape (B = 131,072, 64 minibatches)
+     and at 48 features at B = 98,304;
+  9. hold the env-only Hovering kernel against its plain version at 4096
+     envs x 64 steps with resets, then drive it once at 131,072 envs x 64
+     (counters set to 0 before, read after) and hold that run against the
+     plain version too;
+ 10. train Balloon (configs/ppo_balloon.yaml at 4096 envs) and Tracking
+     (configs/ppo_tracking.yaml) for 3 epochs each through the runner,
+     counters checked (Balloon: 1 rollout + 640 update launches per epoch,
+     Tracking: 1 + 480), save and reload each, and profile one epoch each;
+ 11. time the new kernels and their plain versions, and print one JSON
+     line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
@@ -34,16 +47,25 @@ import torch
 
 # tolerances of the kernel-vs-plain comparisons: float32 with other
 # summation orders in the MLP (measured ~2e-6 on an H100); the update's
-# are those of the JAX suite's fused-update tests
+# and the env-only kernel's are those of the JAX suite's tests
 ROLLOUT_ATOL = 1e-4
 UPDATE_PARAM_RTOL = 2e-3        # of max |ref| per tensor, + 1e-5
 METRIC_RTOL, METRIC_ATOL = 5e-3, 5e-4
-EPOCHS = 4
-TIMING_REPS = 20
+ENV_STATE_ATOL, ENV_REWARD_ATOL = 1e-4, 1e-3
+EPOCHS = 4                      # Hovering
+TASK_EPOCHS = 3                 # Balloon, Tracking
+TIMING_REPS = 20                # kernels; plain versions take PLAIN_REPS
+PLAIN_REPS = 5
+ENV_N, ENV_STEPS = 131072, 64   # env-only kernel: main-path run and timing
 
 # H100 SXM: 67 TFLOP/s FP32 outside the tensor cores, 3.35 TB/s HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# FP32 operations of one env-only step per env, counted by hand from
+# csrc/quad_step.cuh (each division, square root and transcendental as
+# one; the hash's integer work not counted): controller ~140, physics
+# ~180, hovering reward ~150, reset float math ~110
+ENV_STEP_OPS = 580
 
 
 def fail(msg):
@@ -78,117 +100,120 @@ def bound_ms(flops, nbytes):
                                        else "bytes")
 
 
-def main():
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+def mlp_macs(obs):
+    """MACs of one forward pass of the [64,128,64] net to mu(4) + value."""
+    return 64 * obs + 128 * 64 + 64 * 128 + 5 * 64
 
-    from airgym_tpu_torch import envs
-    from airgym_tpu_torch.kernels import build
-    from airgym_tpu_torch.ops import fused_hovering as fh
+
+def rollout_bound(task, n, steps, n_weights):
     from airgym_tpu_torch.ops import fused_rollout as fr
+    flops = 2.0 * mlp_macs(fr._TASK_OBS[task]) * n * steps
+    nbytes = 4.0 * (2 * fr._F * n + steps * fr.rec_len(task) * n + n_weights)
+    return bound_ms(flops, nbytes)
+
+
+def update_bound(obs, B, mini_epochs):
     from airgym_tpu_torch.ops import fused_update as fu
-    from airgym_tpu_torch.rl import checkpoint as ckpt
-    from airgym_tpu_torch.rl import runner as runner_mod
-    from airgym_tpu_torch.rl.fused_ppo import FusedHoveringPPO
-    from airgym_tpu_torch.rl.runner import ppo_config_from_params
-    import yaml
+    # forward, weight gradients, input gradients (none into the obs)
+    per_sample = 2.0 * (2 * mlp_macs(obs) + mlp_macs(obs) - 64 * obs)
+    nbytes = 4.0 * (B * (obs + 4 + 3 + 4) + 6 * fu.num_params(obs))
+    return bound_ms(per_sample * B * mini_epochs, nbytes)
 
-    dev = torch.device("cuda")
-    # ---- 1. card ----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        "nvidia-smi: not available"
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build ---------------------------------------------------------
-    kernels = [fr.KERNEL, fu.KERNEL]
-    secs = build.build_all(kernels)
-    print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
+def reset_counts(kernels):
     for k in kernels:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {k.name}: {line.strip()}", flush=True)
+        k.launches.clear()
 
-    cfg_path = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
-                            "..", "configs", "ppo_hovering.yaml")
-    with open(cfg_path) as f:
-        yaml_cfg = yaml.safe_load(f)
-    params = yaml_cfg["params"]
-    n_envs = int(params["config"]["num_actors"])
-    pcfg = ppo_config_from_params(params)
 
-    task = envs.make_task("hovering", ctl_mode="rate", num_envs=n_envs,
-                          device=dev)
-    trainer = FusedHoveringPPO(task, pcfg)
-    ts = trainer.init(1234)
+def rollout_vs_plain(fr, packed, pack, seed, steps, task, alpha=0.0):
+    """Kernel vs plain on the same inputs; returns (max err, resets,
+    timeouts, hits)."""
+    out_k, rec_k = fr.rollout_fused_policy(packed, pack, seed, steps,
+                                           obs_noise=True, task=task,
+                                           motor_alpha=alpha)
+    out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, seed, steps,
+                                                 obs_noise=True, task=task,
+                                                 motor_alpha=alpha)
+    torch.cuda.synchronize()
+    obs = fr._TASK_OBS[task]
+    fl = slice(obs + 11, obs + 13)
+    flags_k, flags_p = rec_k[:, fl], rec_p[:, fl]
+    check(torch.equal(flags_k, flags_p),
+          f"{task} rollout done/timeout flags differ (alpha={alpha}): "
+          f"{int((flags_k != flags_p).sum())} of {flags_k.numel()}")
+    check(bool(torch.isfinite(rec_k).all()), f"{task} record not finite")
+    own = 35 if task == "balloon" else 29
+    err_rec = float((rec_k - rec_p).abs().max())
+    err_st = float((out_k[:own] - out_p[:own]).abs().max())
+    check(torch.equal(out_k[own:], packed[own:]),
+          f"{task} rollout changed rows it does not own")
+    n_reset = int(flags_p[:, 0].sum())
+    n_timeout = int(flags_p[:, 1].sum())
+    n_hit = int((rec_p[:, obs + 10] > 400.0).sum()) if task == "balloon" \
+        else 0
+    print(f"[rollout {task}] alpha={alpha} {packed.shape[1]}x{steps}: "
+          f"max|rec err| {err_rec:.3e} max|state err| {err_st:.3e} resets "
+          f"{n_reset} timeouts {n_timeout} hits {n_hit}", flush=True)
+    check(err_rec <= ROLLOUT_ATOL and err_st <= ROLLOUT_ATOL,
+          f"{task} rollout kernel disagrees with its plain version beyond "
+          f"atol {ROLLOUT_ATOL}")
+    return max(err_rec, err_st), n_reset, n_timeout, n_hit
 
-    # ---- 3. rollout kernel vs plain ---------------------------------------
-    pack = fr.pack_policy(ts.model, ts.obs_rms)
-    packed = fh.pack_state(ts.env_state.core)
-    packed[19, :256] = 2390.0            # exercise the timeout path too
-    seed, H = 987654321, pcfg.horizon
-    rollout_err = 0.0
-    for alpha in (0.0, 0.6):
-        out_k, rec_k = fr.rollout_fused_policy(packed, pack, seed, H,
-                                               obs_noise=True,
-                                               motor_alpha=alpha)
-        out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, seed, H,
-                                                     obs_noise=True,
-                                                     motor_alpha=alpha)
-        torch.cuda.synchronize()
-        flags_k, flags_p = rec_k[:, 29:31], rec_p[:, 29:31]
-        check(torch.equal(flags_k, flags_p),
-              f"rollout done/timeout flags differ (alpha={alpha}): "
-              f"{int((flags_k != flags_p).sum())} of {flags_k.numel()}")
-        check(bool(torch.isfinite(rec_k).all()), "rollout record not finite")
-        err_rec = float((rec_k[:, :29] - rec_p[:, :29]).abs().max())
-        err_st = float((out_k[:29] - out_p[:29]).abs().max())
-        n_reset = int(flags_p[:, 0].sum())
-        n_timeout = int(flags_p[:, 1].sum())
-        print(f"[rollout] alpha={alpha} {n_envs}x{H}: max|rec err| "
-              f"{err_rec:.3e} max|state err| {err_st:.3e} resets "
-              f"{n_reset} timeouts {n_timeout}", flush=True)
-        check(err_rec <= ROLLOUT_ATOL and err_st <= ROLLOUT_ATOL,
-              f"rollout kernel disagrees with its plain version beyond "
-              f"atol {ROLLOUT_ATOL}")
-        if alpha == 0.0:
-            rollout_err = max(err_rec, err_st)
 
-    # ---- 4. update kernel vs plain ----------------------------------------
-    g = torch.Generator(device=dev)
-    g.manual_seed(7)
-    B = trainer.batch_size
-    nmb, me = trainer.num_minibatches, pcfg.mini_epochs
-    obs = torch.randn((B, fr.OBS), generator=g, device=dev)
+def env_vs_plain(fh, packed, act, seed, steps, out_k, rew_k):
+    """The env-only kernel's result (out_k, rew_k) vs its plain version on
+    the same inputs; returns (max state err, max reward-sum err)."""
+    out_p, rew_p = fh.rollout_fused_plain(packed, act, seed, steps)
+    torch.cuda.synchronize()
+    n = packed.shape[1]
+    check(torch.equal(out_k[19:21], out_p[19:21]),
+          f"env-only kernel at {n}x{steps}: progress / reset flags differ "
+          f"from plain")
+    env_err = float((out_k[:29] - out_p[:29]).abs().max())
+    rew_err = float((rew_k - rew_p).abs().max())
+    n_fresh = int((out_p[19] < steps).sum())
+    print(f"[env-only] {n}x{steps}: max|state err| {env_err:.3e} "
+          f"max|reward-sum err| {rew_err:.3e} envs reset in the window "
+          f"{n_fresh}", flush=True)
+    check(n_fresh > 0, f"env-only window at {n}x{steps} has no resets")
+    check(env_err <= ENV_STATE_ATOL and rew_err <= ENV_REWARD_ATOL,
+          f"env-only kernel disagrees with its plain version at {n}x{steps}")
+    check(torch.equal(out_k[29:], packed[29:]),
+          "env-only kernel changed rows 29:40")
+    return env_err, rew_err
+
+
+def update_case(fu, model, obs_rms, g, B, obs_dim, lr, pcfg, nmb):
+    """Random dataset at the main path's shape, from the model's policy."""
+    dev = lr.device
+    obs = torch.randn((B, obs_dim), generator=g, device=dev)
     with torch.no_grad():
-        mu0, sigma, _ = ts.model(obs, ts.obs_rms)
-    logstd = ts.model.logstd.detach()
+        mu0, sigma, _ = model(obs, obs_rms)
+    logstd = model.logstd.detach()
     actions = mu0 + sigma * torch.randn(mu0.shape, generator=g, device=dev)
     d = (actions - mu0) / sigma
     nlp = (0.5 * (d * d).sum(-1) + 0.5 * math.log(2 * math.pi) * 4
            + logstd.sum())
     adv = torch.randn((B,), generator=g, device=dev)
     ret = torch.randn((B,), generator=g, device=dev)
-    obs_n = ts.obs_rms.normalize(obs)
-    named = dict(ts.model.named_parameters())
+    named = dict(model.named_parameters())
+    zero = {k: torch.zeros_like(v.detach()) for k, v in named.items()}
     kcfg = dict(e_clip=pcfg.e_clip, critic_coef=pcfg.critic_coef,
                 bounds_coef=pcfg.bounds_loss_coef,
                 entropy_coef=pcfg.entropy_coef,
                 truncate_grads=pcfg.truncate_grads, grad_norm=pcfg.grad_norm,
                 adaptive_lr=True, kl_threshold=pcfg.kl_threshold,
                 min_lr=pcfg.min_lr, max_lr=pcfg.max_lr)
-    upd_args = (obs_n, actions, adv, ret, nlp, mu0,
-                torch.exp(logstd).reshape(-1, 1), fu.pack_update(named),
-                fu.pack_update(ts.adam["m"]), fu.pack_update(ts.adam["v"]),
-                ts.lr.reshape(1), ts.adam["count"].reshape(1))
-    upd_kw = dict(nmb=nmb, mini_epochs=me, cfg=kcfg)
-    res_k = fu.fused_update(*upd_args, **upd_kw)
-    res_p = fu.fused_update_plain(*upd_args, **upd_kw)
+    args = (obs_rms.normalize(obs), actions, adv, ret, nlp, mu0,
+            torch.exp(logstd).reshape(-1, 1), fu.pack_update(named),
+            fu.pack_update(zero), fu.pack_update(zero), lr.reshape(1),
+            torch.zeros(1, device=dev))
+    return args, dict(nmb=nmb, mini_epochs=pcfg.mini_epochs, cfg=kcfg)
+
+
+def update_vs_plain(fu, args, kw, tag):
+    res_k = fu.fused_update(*args, **kw)
+    res_p = fu.fused_update_plain(*args, **kw)
     torch.cuda.synchronize()
     update_err = 0.0
     for which, (pk, pp) in zip(("params", "m", "v"),
@@ -200,99 +225,80 @@ def main():
             if which == "params":
                 update_err = max(update_err, err)
             check(err < UPDATE_PARAM_RTOL * scale + 1e-5,
-                  f"update {which}.{f}: max|err| {err:.3e} vs scale "
+                  f"update {tag} {which}.{f}: max|err| {err:.3e} vs scale "
                   f"{scale:.3e}")
     check(math.isclose(float(res_k[3]), float(res_p[3]), rel_tol=1e-6),
-          f"update lr {float(res_k[3])} vs {float(res_p[3])}")
+          f"update {tag} lr {float(res_k[3])} vs {float(res_p[3])}")
     check(float(res_k[4]) == float(res_p[4]),
-          f"update count {float(res_k[4])} vs {float(res_p[4])}")
+          f"update {tag} count {float(res_k[4])} vs {float(res_p[4])}")
     for key in fu.METRICS:
         a, b = float(res_p[5][key]), float(res_k[5][key])
         check(math.isfinite(b) and abs(a - b) <= METRIC_ATOL
               + METRIC_RTOL * abs(a),
-              f"update metric {key}: kernel {b} vs plain {a}")
-    print(f"[update] B={B} mb={B // nmb} nmb={nmb} mini_epochs={me}: "
-          f"max|param err| {update_err:.3e} lr {float(res_k[3]):.3e} "
-          f"count {float(res_k[4]):.0f} kl {float(res_k[5]['kl']):.3e}",
+              f"update {tag} metric {key}: kernel {b} vs plain {a}")
+    B = args[0].shape[0]
+    print(f"[update {tag}] B={B} mb={B // kw['nmb']} nmb={kw['nmb']} "
+          f"mini_epochs={kw['mini_epochs']}: max|param err| "
+          f"{update_err:.3e} lr {float(res_k[3]):.3e} count "
+          f"{float(res_k[4]):.0f} kl {float(res_k[5]['kl']):.3e}",
           flush=True)
+    return update_err
 
-    # ---- 5. train through the runner --------------------------------------
-    params["config"]["max_epochs"] = EPOCHS
+
+def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
+                     probe_gen, num_envs=None):
+    """Train through the runner; save / reload the native checkpoint and
+    the reference .pth. Returns (a trainer of the run's config, the run's
+    TrainState, the run info)."""
+    params = yaml_cfg["params"]
+    params["config"]["max_epochs"] = epochs
     params["config"]["save_best_after"] = 1
     params["seed"] = 42
-    run_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "build", "chip_smoke_runs")
-    for k in kernels:
-        k.launches = 0
+    runner = runner_mod.Runner().load(yaml_cfg)
+    args = {"task": task, "ctl_mode": "rate", "device": "cuda",
+            "run_root": run_root, "log_every": 1, "num_envs": num_envs}
     t0 = time.time()
-    ts_run, info = runner_mod.Runner().load(yaml_cfg).run_train(
-        {"task": "hovering", "ctl_mode": "rate", "device": "cuda",
-         "run_root": run_root, "log_every": 1})
+    ts_run, info = runner.run_train(args)
     torch.cuda.synchronize()
-    train_s = time.time() - t0
-    launches = {k.name: k.launches for k in kernels}
-    per_epoch_update = 2 * nmb * me
-    print(f"[train] {EPOCHS} epochs in {train_s:.2f} s; launches "
-          f"{launches}", flush=True)
+    info["train_s"] = time.time() - t0
     for row in info["history"]:
-        print(f"[train] epoch {row['epoch']}: mean_reward "
+        print(f"[train {task}] epoch {row['epoch']}: mean_reward "
               f"{row['mean_reward']:.4f} loss {row['loss']:.5f} kl "
               f"{row['kl']:.3e} lr {row['lr']:.3e} epoch_s "
-              f"{row['seconds']:.3f} fps {row['fps']:.0f}", flush=True)
+              f"{row['seconds']:.3f} fps {row['fps']:.0f}"
+              + (f" success_rate {row['success_rate']:.4f}"
+                 if "success_rate" in row else ""), flush=True)
         for key in ("mean_reward", "loss", "kl", "lr", "seconds"):
-            check(math.isfinite(row[key]), f"epoch {row['epoch']}: {key} "
-                                           f"not finite")
-    check(len(info["history"]) == EPOCHS, "missing epochs in the history")
-    check(launches["fused_rollout"] == EPOCHS,
-          f"rollout kernel launches {launches['fused_rollout']} != "
-          f"{EPOCHS} (1 per epoch)")
-    check(launches["fused_update"] == EPOCHS * per_epoch_update,
-          f"update kernel launches {launches['fused_update']} != "
-          f"{EPOCHS * per_epoch_update} ({per_epoch_update} per epoch)")
+            check(math.isfinite(row[key]), f"{task} epoch {row['epoch']}: "
+                                           f"{key} not finite")
+    check(len(info["history"]) == epochs, f"{task}: missing epochs")
 
-    # save / reload: native checkpoint and the reference .pth
-    ts_new = trainer.init(5)
-    ts_new = ckpt.restore(ts_new, ckpt.load(info["checkpoint"]))
+    _, trainer, _ = runner.build(args)
+    ts_new = ckpt.restore(trainer.init(5), ckpt.load(info["checkpoint"]))
     for name, p in ts_run.model.state_dict().items():
         check(torch.equal(p, ts_new.model.state_dict()[name]),
-              f"checkpoint reload differs at {name}")
+              f"{task} checkpoint reload differs at {name}")
     check(torch.equal(ts_new.adam["count"], ts_run.adam["count"]),
-          "checkpoint reload: Adam count differs")
+          f"{task} checkpoint reload: Adam count differs")
     model2 = trainer.make_model()
     ckpt.import_pth(info["checkpoint"][:-3] + ".pth", model2)
-    probe = torch.randn((64, fr.OBS), generator=g, device=dev)
+    probe = torch.randn((64, trainer.task.num_obs), generator=probe_gen,
+                        device="cuda")
     with torch.no_grad():
         mu_a, _, v_a = ts_run.model(probe)
         mu_b, _, v_b = model2(probe)
     check(torch.equal(mu_a, mu_b) and torch.equal(v_a, v_b),
-          ".pth reload gives another mu / value")
-    print(f"[train] checkpoint {os.path.basename(info['checkpoint'])} "
-          f"saved and reloaded (native + .pth)", flush=True)
+          f"{task} .pth reload gives another mu / value")
+    print(f"[train {task}] checkpoint {os.path.basename(info['checkpoint'])}"
+          f" saved and reloaded (native + .pth)", flush=True)
+    return trainer, ts_run, info
 
-    # ---- 6. timing ----------------------------------------------------------
-    n, steps = packed.shape[1], H
-    rollout_flops = 2.0 * 17856 * n * steps
-    rollout_bytes = 4.0 * (2 * fr._F * n + steps * fr.REC * n
-                           + fr.flat_policy(pack).numel())
-    r_bound, r_by = bound_ms(rollout_flops, rollout_bytes)
-    r_ms = cuda_time_ms(lambda: fr.rollout_fused_policy(packed, pack, seed,
-                                                        steps))
-    r_plain = cuda_time_ms(lambda: fr.rollout_fused_policy_plain(
-        packed, pack, seed, steps))
-    per_sample = 2.0 * (17856 + 17856 + 16704)
-    update_flops = per_sample * B * me
-    update_bytes = 4.0 * (B * (fr.OBS + 4 + 3 + 4) + 6 * fu.NP)
-    u_bound, u_by = bound_ms(update_flops, update_bytes)
-    u_ms = cuda_time_ms(lambda: fu.fused_update(*upd_args, **upd_kw))
-    u_plain = cuda_time_ms(lambda: fu.fused_update_plain(*upd_args,
-                                                         **upd_kw))
-    print(f"[time] rollout {r_ms:.3f} ms (plain {r_plain:.3f}, bound "
-          f"{r_bound:.4f} by {r_by}); update {u_ms:.3f} ms (plain "
-          f"{u_plain:.3f}, bound {u_bound:.4f} by {u_by})", flush=True)
 
-    # ---- 7. where one epoch's time goes (torch.profiler) --------------------
+def profile_epoch(trainer, ts, tag):
+    """One warm epoch, then one under torch.profiler: wall, device busy,
+    the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
-    ts_prof = trainer.train_epoch(ts_run)[0]          # warm
+    ts_prof = trainer.train_epoch(ts)[0]               # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -308,26 +314,283 @@ def main():
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] one epoch: wall {wall_ms:.2f} ms, device busy "
+    print(f"[profile {tag}] one epoch: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) under the "
           f"profiler", flush=True)
     for ms, count, key in rows[:8]:
-        print(f"[profile]   {ms:8.3f} ms  x{count:<5d} {key[:70]}",
+        print(f"[profile {tag}]   {ms:8.3f} ms  x{count:<5d} {key[:70]}",
               flush=True)
 
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+
+    from airgym_tpu_torch import envs
+    from airgym_tpu_torch.kernels import build
+    from airgym_tpu_torch.models.actor_critic import ActorCritic
+    from airgym_tpu_torch.ops import fused_hovering as fh
+    from airgym_tpu_torch.ops import fused_rollout as fr
+    from airgym_tpu_torch.ops import fused_update as fu
+    from airgym_tpu_torch.rl import checkpoint as ckpt
+    from airgym_tpu_torch.rl import runner as runner_mod
+    from airgym_tpu_torch.rl.fused_ppo import FusedHoveringPPO
+    from airgym_tpu_torch.rl.runner import ppo_config_from_params
+    from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+    import yaml
+
+    dev = torch.device("cuda")
+    # ---- 1. card ----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi: not available"
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # ---- 2. build ---------------------------------------------------------
+    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL]
+    secs = build.build_all(kernels)
+    print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "Compiling entry" in line):
+                print(f"[build] {k.name}: {line.strip()}", flush=True)
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
+                           "..", "configs")
+
+    def load_cfg(task):
+        with open(os.path.join(cfg_dir, f"ppo_{task}.yaml")) as f:
+            return yaml.safe_load(f)
+
+    run_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_runs")
+    yaml_cfg = load_cfg("hovering")
+    params = yaml_cfg["params"]
+    n_envs = int(params["config"]["num_actors"])
+    pcfg = ppo_config_from_params(params)
+
+    task = envs.make_task("hovering", ctl_mode="rate", num_envs=n_envs,
+                          device=dev)
+    trainer = FusedHoveringPPO(task, pcfg)
+    ts = trainer.init(1234)
+
+    # ---- 3. rollout kernel vs plain ---------------------------------------
+    pack = fr.pack_policy(ts.model, ts.obs_rms)
+    packed = fh.pack_state(ts.env_state.core)
+    packed[19, :256] = 2390.0            # exercise the timeout path too
+    seed, H = 987654321, pcfg.horizon
+    rollout_err = {}
+    for alpha in (0.0, 0.6):
+        err, _, _, _ = rollout_vs_plain(fr, packed, pack, seed, H,
+                                        "hovering", alpha)
+        if alpha == 0.0:
+            rollout_err["hovering"] = err
+
+    # ---- 4. update kernel vs plain ----------------------------------------
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    B = trainer.batch_size
+    nmb, me = trainer.num_minibatches, pcfg.mini_epochs
+    upd_args, upd_kw = update_case(fu, ts.model, ts.obs_rms, g, B, 18,
+                                   ts.lr, pcfg, nmb)
+    update_err = {"obs18": update_vs_plain(fu, upd_args, upd_kw, "obs18")}
+
+    # ---- 5. train through the runner --------------------------------------
+    reset_counts(kernels)
+    _, ts_run, info = train_and_reload(runner_mod, ckpt, yaml_cfg,
+                                       "hovering", EPOCHS, run_root, g)
+    launches = {"hovering": fr.KERNEL.launches["hovering"],
+                "obs18": fu.KERNEL.launches["obs18"]}
+    per_epoch_update = 2 * nmb * me
+    print(f"[train hovering] {EPOCHS} epochs in {info['train_s']:.2f} s; "
+          f"launches {launches}", flush=True)
+    check(launches["hovering"] == EPOCHS,
+          f"rollout kernel launches {launches['hovering']} != "
+          f"{EPOCHS} (1 per epoch)")
+    check(launches["obs18"] == EPOCHS * per_epoch_update,
+          f"update kernel launches {launches['obs18']} != "
+          f"{EPOCHS * per_epoch_update} ({per_epoch_update} per epoch)")
+
+    # ---- 6. timing ----------------------------------------------------------
+    times = {}
+    n, steps = packed.shape[1], H
+    times["hovering"] = (
+        cuda_time_ms(lambda: fr.rollout_fused_policy(packed, pack, seed,
+                                                     steps)),
+        cuda_time_ms(lambda: fr.rollout_fused_policy_plain(
+            packed, pack, seed, steps), PLAIN_REPS),
+        *rollout_bound("hovering", n, steps, fr.flat_policy(pack).numel()))
+    times["obs18"] = (
+        cuda_time_ms(lambda: fu.fused_update(*upd_args, **upd_kw)),
+        cuda_time_ms(lambda: fu.fused_update_plain(*upd_args, **upd_kw),
+                     PLAIN_REPS),
+        *update_bound(18, B, me))
+    for key in ("hovering", "obs18"):
+        k_ms, p_ms, b_ms, b_by = times[key]
+        print(f"[time] {key}: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
+              f"bound {b_ms:.4f} by {b_by})", flush=True)
+
+    # ---- 7. where one epoch's time goes (torch.profiler) --------------------
+    profile_epoch(trainer, ts_run, "hovering")
+
+    # ---- 8. Balloon / Tracking rollouts, the update at 48 features ---------
+    task_inputs = {}
+    for name in ("balloon", "tracking"):
+        t_cfg = ppo_config_from_params(load_cfg(name)["params"])
+        t_task = envs.make_task(name, ctl_mode="rate", num_envs=n_envs,
+                                device=dev)
+        state = t_task.initial_state(torch.Generator(device=dev)
+                                     .manual_seed(11))
+        model = ActorCritic(t_task.num_obs, 4, generator=torch.Generator()
+                            .manual_seed(3)).to(dev)
+        rms = RunningMeanStd.create((t_task.num_obs,), dev).update(
+            torch.randn((4096, t_task.num_obs), generator=g, device=dev))
+        t_pack = fr.pack_policy(model, rms)
+        if name == "balloon":
+            p = fr.pack_state_balloon(state.core, state.balloon,
+                                      state.pre_root_pos)
+            p[7, :512] = p[7, :512].abs() + 0.3   # fly forward: survive
+            p[19, :256] = 790.0                    # ... to the time-out
+            p[29:32, 512:640] = p[0:3, 512:640] + torch.tensor(
+                [[0.06], [0.02], [0.0]], device=dev)  # balloon hits
+        else:
+            p = fh.pack_state(state.core)
+            p[19, :256] = 3590.0                   # time out, on track
+            ref = t_task.ref_trajectory(p[19, :256].to(torch.int32) + 1)
+            p[0:3, :256] = ref[:, 0].T
+            p[0, 256:384] += 1.5                   # off track: die
+        err, n_reset, n_timeout, n_hit = rollout_vs_plain(
+            fr, p, t_pack, seed, t_cfg.horizon, name)
+        check(n_reset > 0 and n_timeout > 0 and (n_hit > 0
+                                                 or name != "balloon"),
+              f"{name} rollout window lacks resets / timeouts / hits")
+        rollout_err[name] = err
+        task_inputs[name] = (p, t_pack, t_cfg.horizon)
+        if name == "balloon":
+            # the 18-feature update at Balloon's shape: B = 131,072, 64
+            # minibatches (640 launches per epoch)
+            Bb = n_envs * t_cfg.horizon
+            updb_args, updb_kw = update_case(
+                fu, model, rms, g, Bb, 18, ts.lr, t_cfg,
+                Bb // t_cfg.minibatch_size)
+            update_err["obs18"] = max(update_err["obs18"], update_vs_plain(
+                fu, updb_args, updb_kw, "obs18 balloon"))
+            del updb_args
+        if name == "tracking":
+            B48 = n_envs * t_cfg.horizon
+            nmb48 = B48 // t_cfg.minibatch_size
+            upd48_args, upd48_kw = update_case(
+                fu, model, rms, g, B48, 48, ts.lr, t_cfg, nmb48)
+            update_err["obs48"] = update_vs_plain(fu, upd48_args, upd48_kw,
+                                                  "obs48")
+
+    # ---- 9. env-only Hovering kernel ------------------------------------------
+    act = torch.tensor([0.05, -0.05, 0.02, 0.4], device=dev)
+    e_task = envs.make_task("hovering", ctl_mode="rate", num_envs=n_envs,
+                            device=dev)
+    e_packed = fh.pack_state(e_task.initial_state(
+        torch.Generator(device=dev).manual_seed(13)).core)
+    e_packed[19, :256] = 2380.0
+    out_k, rew_k = fh.rollout_fused(e_packed, act, 99, 64)
+    env_err, rew_err = env_vs_plain(fh, e_packed, act, 99, 64, out_k, rew_k)
+    big_task = envs.make_task("hovering", ctl_mode="rate", num_envs=ENV_N,
+                              device=dev)
+    big = fh.pack_state(big_task.initial_state(
+        torch.Generator(device=dev).manual_seed(17)).core)
+    big[19, :256] = 2380.0
+    reset_counts(kernels)
+    out_big, rew_big = fh.rollout_fused(big, act, 5, ENV_STEPS)
+    torch.cuda.synchronize()
+    launches["env"] = fh.KERNEL.launches["env"]
+    check(launches["env"] == 1 and sum(fr.KERNEL.launches.values()) == 0,
+          f"env-only path launches {launches['env']} != 1")
+    check(bool(torch.isfinite(out_big[:29]).all())
+          and bool(torch.isfinite(rew_big).all()),
+          "env-only run at full size is not finite")
+    qn = out_big[3:7].norm(dim=0)
+    check(float((qn - 1.0).abs().max()) < 1e-3, "env-only: quats not unit")
+    # the main path's own launch against the plain version at its shape
+    big_errs = env_vs_plain(fh, big, act, 5, ENV_STEPS, out_big, rew_big)
+    env_err, rew_err = max(env_err, big_errs[0]), max(rew_err, big_errs[1])
+
+    # ---- 10. Balloon and Tracking training ------------------------------------
+    paths = {"balloon": ("balloon", "obs18", 640),
+             "tracking": ("tracking", "obs48", 480)}
+    for name, (rkey, ukey, per_epoch) in paths.items():
+        reset_counts(kernels)
+        t_trainer, t_ts, t_info = train_and_reload(
+            runner_mod, ckpt, load_cfg(name), name, TASK_EPOCHS, run_root, g,
+            num_envs=n_envs)
+        got = {rkey: fr.KERNEL.launches[rkey], ukey: fu.KERNEL.launches[ukey]}
+        print(f"[train {name}] {TASK_EPOCHS} epochs in "
+              f"{t_info['train_s']:.2f} s; launches {got}", flush=True)
+        check(got[rkey] == TASK_EPOCHS,
+              f"{name} rollout launches {got[rkey]} != {TASK_EPOCHS}")
+        check(got[ukey] == TASK_EPOCHS * per_epoch,
+              f"{name} update launches {got[ukey]} != "
+              f"{TASK_EPOCHS * per_epoch} ({per_epoch} per epoch)")
+        check(t_trainer.num_minibatches * 2 * t_trainer.cfg.mini_epochs
+              == per_epoch, f"{name}: unexpected minibatch count")
+        launches[rkey] = got[rkey]
+        if ukey not in launches:
+            launches[ukey] = got[ukey]
+        if name == "balloon":
+            for row in t_info["history"]:
+                check(0.0 <= row["success_rate"] <= 1.0,
+                      f"balloon success_rate {row['success_rate']}")
+        profile_epoch(t_trainer, t_ts, name)
+
+    # ---- 11. timing of the new kernels, the kernels line ------------------------
+    for name, (p, t_pack, steps_t) in task_inputs.items():
+        times[name] = (
+            cuda_time_ms(lambda: fr.rollout_fused_policy(
+                p, t_pack, seed, steps_t, task=name)),
+            cuda_time_ms(lambda: fr.rollout_fused_policy_plain(
+                p, t_pack, seed, steps_t, task=name), PLAIN_REPS),
+            *rollout_bound(name, p.shape[1], steps_t,
+                           fr.flat_policy(t_pack).numel()))
+    times["obs48"] = (
+        cuda_time_ms(lambda: fu.fused_update(*upd48_args, **upd48_kw)),
+        cuda_time_ms(lambda: fu.fused_update_plain(*upd48_args, **upd48_kw),
+                     PLAIN_REPS),
+        *update_bound(48, upd48_args[0].shape[0], upd48_kw["mini_epochs"]))
+    times["env"] = (
+        cuda_time_ms(lambda: fh.rollout_fused(big, act, 5, ENV_STEPS)),
+        cuda_time_ms(lambda: fh.rollout_fused_plain(big, act, 5, ENV_STEPS),
+                     PLAIN_REPS),
+        *bound_ms(ENV_STEP_OPS * ENV_N * ENV_STEPS,
+                  4.0 * (2 * fh._F * ENV_N + ENV_N + 4)))
+    for key in ("balloon", "tracking", "obs48", "env"):
+        k_ms, p_ms, b_ms, b_by = times[key]
+        print(f"[time] {key}: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
+              f"bound {b_ms:.4f} by {b_by})", flush=True)
+
+    def entry(name, key, source, replaces, err):
+        k_ms, p_ms, b_ms, b_by = times[key]
+        return {"name": name, "route": "cuda",
+                "source": f"airgym_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    rollout_src = "airgym_tpu/ops/fused_rollout.py:105"
+    update_src = "airgym_tpu/ops/fused_update.py:117"
     kernels_line = {"kernels": [
-        {"name": "fused_rollout", "route": "cuda",
-         "source": "airgym_tpu_torch/csrc/fused_rollout.cu",
-         "replaces": "airgym_tpu/ops/fused_rollout.py:105",
-         "launches": launches["fused_rollout"],
-         "max_abs_err": rollout_err, "ms": r_ms, "plain_ms": r_plain,
-         "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
-        {"name": "fused_update", "route": "cuda",
-         "source": "airgym_tpu_torch/csrc/fused_update.cu",
-         "replaces": "airgym_tpu/ops/fused_update.py:117",
-         "launches": launches["fused_update"],
-         "max_abs_err": update_err, "ms": u_ms, "plain_ms": u_plain,
-         "bound_ms": u_bound, "bound_by": u_by, "library_ms": None},
+        entry(f"fused_rollout[{t}]", t, "fused_rollout.cu", rollout_src,
+              rollout_err[t]) for t in ("hovering", "balloon", "tracking")
+    ] + [
+        entry(f"fused_update[{o}]", o, "fused_update.cu", update_src,
+              update_err[o]) for o in ("obs18", "obs48")
+    ] + [
+        entry("fused_hovering", "env", "fused_hovering.cu",
+              "airgym_tpu/ops/fused_hovering.py:119",
+              max(env_err, rew_err)),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

@@ -55,7 +55,7 @@ def test_plain_rollout_matches_pallas_interpret(motor_alpha, obs_noise):
         torch.from_numpy(st), tfr.PolicyPack(*map(torch.from_numpy, pack)),
         seed, H, obs_noise=obs_noise, motor_alpha=motor_alpha)
     jo, jr = np.asarray(jo), np.asarray(jr)
-    assert tr.shape == (H, tfr.REC, N) and to.shape == (40, N)
+    assert tr.shape == (H, tfr.rec_len("hovering"), N) and to.shape == (40, N)
     np.testing.assert_array_equal(tr[:, 29:31].numpy(), jr[:, 29:31])
     assert jr[:, 29].sum() >= 100 and jr[:, 30].sum() >= 50
     np.testing.assert_allclose(tr[:, :29].numpy(), jr[:, :29], atol=1e-4,
@@ -78,10 +78,10 @@ def test_pack_policy_layout_and_refusals():
     np.testing.assert_allclose(
         pack.obs_istd[:, 0].numpy(),
         1 / np.sqrt(rms.var.numpy().astype(np.float32) + 1e-5), rtol=1e-6)
-    assert tfr.rec_len("hovering") == tfr.REC == 31
+    assert tfr.rec_len("hovering") == 31
     st = torch.zeros((40, N))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfr.rollout_fused_policy(st, pack, 0, 1, task="balloon")
+        tfr.rollout_fused_policy(st, pack, 0, 1, task="avoid")
     with pytest.raises(ValueError, match="multiple of 1024"):
         tfr.rollout_fused_policy(torch.zeros((40, 512)), pack, 0, 1)
 

@@ -1,6 +1,7 @@
 """The fused update's plain PyTorch version vs the JAX fused_update
 kernel (which interprets by itself off-TPU), from the same dataset,
-weights and Adam state.
+weights and Adam state, at 18 observation features (Hovering, Balloon)
+and 48 (Tracking).
 
 Tolerances are those of tests/test_fused_update.py: params and moments
 within 2e-3 * max|ref| + 1e-5 per tensor, lr to rtol 1e-6, count equal,
@@ -13,22 +14,27 @@ import torch
 from airgym_tpu.ops import fused_update as jfu
 from airgym_tpu_torch.ops import fused_update as tfu
 
-SHAPES = [(64, 18), (64, 1), (128, 64), (128, 1), (64, 128), (64, 1),
-          (5, 64), (5, 1), (4, 1)]
+def shapes(obs=18):
+    return [(64, obs), (64, 1), (128, 64), (128, 1), (64, 128), (64, 1),
+            (5, 64), (5, 1), (4, 1)]
+
+
+SHAPES = shapes(18)
 BASE_CFG = dict(e_clip=0.2, critic_coef=2.0, bounds_coef=1e-4,
                 entropy_coef=0.0, truncate_grads=True, grad_norm=1.5,
                 adaptive_lr=True, kl_threshold=0.008, min_lr=1e-6,
                 max_lr=1e-2)
 
 
-def make_case(seed, B=4096):
+def make_case(seed, B=4096, obs_dim=18):
     rng = np.random.default_rng(seed)
+    sh = shapes(obs_dim)
     w = [rng.normal(0, 1 / np.sqrt(s[1]) if s[1] > 1 else 0.1,
-                    s).astype(np.float32) for s in SHAPES]
+                    s).astype(np.float32) for s in sh]
     w[8] = np.full((4, 1), -0.3, np.float32)
-    m = [rng.normal(0, 1e-3, s).astype(np.float32) for s in SHAPES]
-    v = [np.abs(rng.normal(0, 1e-5, s)).astype(np.float32) for s in SHAPES]
-    obs = np.clip(rng.normal(size=(B, 18)), -5, 5).astype(np.float32)
+    m = [rng.normal(0, 1e-3, s).astype(np.float32) for s in sh]
+    v = [np.abs(rng.normal(0, 1e-5, s)).astype(np.float32) for s in sh]
+    obs = np.clip(rng.normal(size=(B, obs_dim)), -5, 5).astype(np.float32)
     mus0 = rng.normal(0, 0.6, (B, 4)).astype(np.float32)
     sigma0 = np.exp(w[8]).astype(np.float32)
     act = (mus0 + sigma0[:, 0] * rng.normal(size=(B, 4))).astype(np.float32)
@@ -41,21 +47,24 @@ def make_case(seed, B=4096):
 
 
 CASES = {
-    # name: (nmb, mini_epochs, lr, cfg overrides)
-    "adaptive": (8, 3, 3e-4, {}),
-    "lr_down": (8, 3, 1e-2, {}),
-    "lr_up": (8, 3, 1e-6, {}),
-    "single_minibatch_fixed_lr": (1, 2, 3e-4, {"adaptive_lr": False}),
+    # name: (nmb, mini_epochs, lr, cfg overrides, observation features)
+    "adaptive": (8, 3, 3e-4, {}, 18),
+    "lr_down": (8, 3, 1e-2, {}, 18),
+    "lr_up": (8, 3, 1e-6, {}, 18),
+    "single_minibatch_fixed_lr": (1, 2, 3e-4, {"adaptive_lr": False}, 18),
     "entropy_no_clip": (4, 2, 3e-4, {"entropy_coef": 0.01,
-                                     "truncate_grads": False}),
+                                     "truncate_grads": False}, 18),
+    # Tracking's width
+    "obs48_adaptive": (8, 3, 3e-4, {}, 48),
+    "obs48_lr_down": (4, 2, 1e-2, {}, 48),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_update_matches_jax_kernel(case):
-    nmb, me, lr0, over = CASES[case]
+    nmb, me, lr0, over, obs_dim = CASES[case]
     cfg = dict(BASE_CFG, **over)
-    data, w, m, v = make_case(list(CASES).index(case))
+    data, w, m, v = make_case(list(CASES).index(case), obs_dim=obs_dim)
     lr = np.array([lr0], np.float32)
     count = np.array([7.0], np.float32)
     J = jfu.fused_update(*map(jnp.asarray, data),
@@ -95,8 +104,11 @@ def test_pack_roundtrip_and_checks():
     named = dict(model.named_parameters())
     pack = tfu.pack_update(named)
     assert [tuple(x.shape) for x in pack] == SHAPES
-    assert tfu.flatten(pack).numel() == tfu.NP == 18121
-    back = tfu.unpack_update(tfu.unflatten(tfu.flatten(pack)))
+    assert tfu.flatten(pack).numel() == tfu.num_params(18) == 18121
+    assert tfu.num_params(48) == 20041
+    assert [tuple(x.shape) for x in tfu.unflatten(
+        torch.zeros(20041), 48)] == shapes(48)
+    back = tfu.unpack_update(tfu.unflatten(tfu.flatten(pack), 18))
     assert set(back) == set(named)
     for k, p in named.items():
         assert torch.equal(back[k], p.detach()), k

@@ -2,10 +2,11 @@
 
 These need an NVIDIA GPU and nvcc: they are marked ``cuda`` and skip
 elsewhere (the decision is made inside the fixture). ``chip_smoke.py``
-runs the same comparison at the main path's full shapes."""
+runs the same comparisons at the main paths' full shapes."""
 import pytest
 import torch
 
+from airgym_tpu_torch.ops import fused_hovering as fh
 from airgym_tpu_torch.ops import fused_rollout as fr
 from airgym_tpu_torch.ops import fused_update as fu
 
@@ -19,44 +20,70 @@ def device():
     return torch.device("cuda")
 
 
-def _model_and_stats(device):
+def _model_and_stats(device, obs=18):
     from airgym_tpu_torch.models.actor_critic import ActorCritic
     from airgym_tpu_torch.rl.running_stats import RunningMeanStd
     g = torch.Generator().manual_seed(0)
-    model = ActorCritic(18, 4, generator=g).to(device)
-    rms = RunningMeanStd.create((18,), device).update(
-        torch.randn((512, 18), device=device))
+    model = ActorCritic(obs, 4, generator=g).to(device)
+    rms = RunningMeanStd.create((obs,), device).update(
+        torch.randn((512, obs), device=device))
     return model, rms
 
 
-def test_rollout_kernel_matches_plain(device):
+@pytest.mark.parametrize("task", ["hovering", "balloon", "tracking"])
+def test_rollout_kernel_matches_plain(device, task):
     from airgym_tpu_torch import envs
-    from airgym_tpu_torch.ops import fused_hovering as fh
-    task = envs.make_task("hovering", num_envs=2048, device=device)
+    t = envs.make_task(task, num_envs=2048, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
-    state = task.initial_state(gen)
-    model, rms = _model_and_stats(device)
+    state = t.initial_state(gen)
+    model, rms = _model_and_stats(device, t.num_obs)
     pack = fr.pack_policy(model, rms)
-    packed = fh.pack_state(state.core)
-    packed[19, :64] = 2396.0
-    before = fr.KERNEL.launches
-    out_k, rec_k = fr.rollout_fused_policy(packed, pack, 42, 8)
-    assert fr.KERNEL.launches == before + 1
-    out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, 42, 8)
+    if task == "balloon":
+        packed = fr.pack_state_balloon(state.core, state.balloon,
+                                       state.pre_root_pos)
+        packed[29:32, 64:96] = packed[0:3, 64:96] + 0.05     # hits
+    else:
+        packed = fh.pack_state(state.core)
+    max_len = fr._TASK_MAX_LEN[task]
+    packed[19, :64] = max_len - 4.0
+    before = fr.KERNEL.launches[task]
+    out_k, rec_k = fr.rollout_fused_policy(packed, pack, 42, 8, task=task)
+    assert fr.KERNEL.launches[task] == before + 1
+    out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, 42, 8,
+                                                 task=task)
     torch.cuda.synchronize()
-    assert torch.equal(rec_k[:, 29:31], rec_p[:, 29:31])
+    obs = t.num_obs
+    assert torch.equal(rec_k[:, obs + 11:obs + 13], rec_p[:, obs + 11:obs + 13])
     torch.testing.assert_close(rec_k, rec_p, atol=1e-4, rtol=0)
     torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("B,nmb", [(4096, 4), (1000, 10)])
-def test_update_kernel_matches_plain(device, B, nmb):
+def test_env_only_kernel_matches_plain(device):
+    from airgym_tpu_torch import envs
+    t = envs.make_task("hovering", num_envs=2048, device=device)
+    state = t.initial_state(torch.Generator(device=device).manual_seed(2))
+    packed = fh.pack_state(state.core)
+    packed[19, :64] = 2390.0
+    act = torch.tensor([0.1, -0.1, 0.05, 0.7], device=device)
+    before = fh.KERNEL.launches["env"]
+    out_k, rew_k = fh.rollout_fused(packed, act, 7, 32)
+    assert fh.KERNEL.launches["env"] == before + 1
+    out_p, rew_p = fh.rollout_fused_plain(packed, act, 7, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k[19:21], out_p[19:21])
+    torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(rew_k, rew_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,nmb,obs", [(4096, 4, 18), (1000, 10, 18),
+                                       (4096, 4, 48)])
+def test_update_kernel_matches_plain(device, B, nmb, obs):
     """(1000, 10): minibatches of 100 samples, a ragged last block."""
-    model, rms = _model_and_stats(device)
+    model, rms = _model_and_stats(device, obs)
     g = torch.Generator(device=device).manual_seed(2)
-    obs = torch.randn((B, 18), generator=g, device=device)
+    x = torch.randn((B, obs), generator=g, device=device)
     with torch.no_grad():
-        mu0, sigma, _ = model(obs, rms)
+        mu0, sigma, _ = model(x, rms)
     act = mu0 + sigma * torch.randn(mu0.shape, generator=g, device=device)
     logstd = model.logstd.detach()
     d = (act - mu0) / sigma
@@ -67,8 +94,8 @@ def test_update_kernel_matches_plain(device, B, nmb):
                entropy_coef=0.0, truncate_grads=True, grad_norm=1.5,
                adaptive_lr=True, kl_threshold=0.008, min_lr=1e-6,
                max_lr=1e-2)
-    args = (rms.normalize(obs), act, torch.randn((B,), generator=g,
-                                                 device=device),
+    args = (rms.normalize(x), act, torch.randn((B,), generator=g,
+                                               device=device),
             torch.randn((B,), generator=g, device=device), nlp, mu0,
             torch.exp(logstd).reshape(-1, 1), fu.pack_update(named),
             fu.pack_update(zero), fu.pack_update(zero),

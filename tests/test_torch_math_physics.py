@@ -190,11 +190,9 @@ def test_hash_mix_is_bit_exact():
 def test_hash_uniform_is_bit_exact_per_tile(seed):
     """Two 1024-env tiles: the tile seed comes from the env index, the
     lane is the env's index in its tile, the counter restarts at 1."""
-    from airgym_tpu_torch.ops import fused_rollout as tfr
-    base, lanes = tfr._rng_base(seed, 2 * tfh.TILE, "cpu")
+    base, lanes = tfh.rng_base(seed, 2 * tfh.TILE, "cpu")
     for step in (0, 7):
-        key = base ^ tfh._mulmod(step + 1, 0x9E3779B1)
-        draw = tfh._make_uniform(key, lanes)
+        draw = tfh.step_uniform(base, lanes, step)
         got = np.stack([draw().numpy() for _ in range(5)])
         for tile in range(2):
             jbase = (jnp.uint32(seed) + jnp.uint32(tile)
