@@ -1,11 +1,14 @@
 """CLI entry point (counterpart of airgym_tpu/cli.py, train only):
 
-    python -m airgym_tpu_torch.cli --train --task hovering --ctl_mode rate \
-        [--num_envs N] [--seed S] [--file cfg.yaml] [--device cuda|cpu]
+    python -m airgym_tpu_torch.cli --train --task planning \
+        [--ctl_mode rate] [--num_envs N] [--seed S] [--file cfg.yaml] \
+        [--device cuda|cpu]
 
-Uses the packaged airgym_tpu_torch/configs/ppo_<task>.yaml unless --file
-is given; CLI flags override YAML values. Runs on ``cuda`` unless
-``--device cpu`` is given, and raises without a GPU.
+Tasks: hovering, balloon, tracking, planning. Uses the packaged
+airgym_tpu_torch/configs/ppo_<task>.yaml unless --file is given; CLI
+flags override YAML values. ``--ctl_mode`` defaults to rate, the only
+mode ported. Runs on ``cuda`` unless ``--device cpu`` is given, and
+raises without a GPU.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def get_args(argv=None):
     p = argparse.ArgumentParser("airgym_tpu_torch runner")
     p.add_argument("--task", default="hovering")
-    p.add_argument("--ctl_mode", required=True,
+    p.add_argument("--ctl_mode", default="rate",
                    choices=["pos", "vel", "atti", "rate", "prop"])
     p.add_argument("--train", action="store_true",
                    help="train (the only mode this port runs so far)")

@@ -1,7 +1,7 @@
 """Task registry (counterpart of airgym_tpu/envs/__init__.py).
 
-Ported: Hovering, Balloon and Tracking. Every other task of the JAX
-package is still to come (ROADMAP.md queue A items 11-13) and
+Ported: Hovering, Balloon, Tracking and Planning. Every other task of
+the JAX package is still to come (ROADMAP.md queue A items 11-13) and
 ``make_task`` refuses it.
 """
 from __future__ import annotations
@@ -11,14 +11,16 @@ import dataclasses
 from airgym_tpu_torch import device as device_mod
 from airgym_tpu_torch.envs.balloon import Balloon, BalloonCfg
 from airgym_tpu_torch.envs.hovering import Hovering, HoveringCfg
+from airgym_tpu_torch.envs.planning import Planning, PlanningCfg
 from airgym_tpu_torch.envs.tracking import Tracking, TrackingCfg
 
 _REGISTRY = {"hovering": (Hovering, HoveringCfg),
              "balloon": (Balloon, BalloonCfg),
-             "tracking": (Tracking, TrackingCfg)}
+             "tracking": (Tracking, TrackingCfg),
+             "planning": (Planning, PlanningCfg)}
 
 _NOT_PORTED = {
-    "avoid": "queue A item 12", "planning": "queue A item 12",
+    "avoid": "queue A item 12b",
     "customized": "queue A item 11", "maplanning": "queue A item 13",
     "depthgen": "queue A item 13",
 }

@@ -12,6 +12,13 @@ Reset semantics match the reference:
   * the first step after a reset applies ZERO rotor thrust;
   * ``timeout`` is the actual truncation flag (episode-length reset
     without a failure), which the PPO value bootstrap reads.
+
+Camera tasks (``obs_is_dict``) return ``{"image", "observation"}`` and
+render every ``cfg.cam_every`` steps off a step counter. Their ``step``
+takes a static ``render`` argument: None renders on the counter's
+cadence, True renders now and False keeps the last image; the PPO
+rollout passes True / False once ``PPO.init`` has aligned the counter to
+the rollout's blocks.
 """
 from __future__ import annotations
 
@@ -63,6 +70,11 @@ class BaseEnvCfg:
     def num_actions(self) -> int:
         return px4.num_actions(self.ctl_mode)
 
+    @property
+    def cam_every(self) -> int:
+        """Steps between camera renders (1 for tasks without a camera)."""
+        return 1
+
 
 # Narrowed rate limits of the vision-task lineage (reference
 # customized.py:109-114: body rates +-1 rad/s instead of hovering's +-6).
@@ -79,6 +91,8 @@ class QuadEnvCore:
     action_limit_overrides: Dict[str, Tuple[Any, Any]] = {}
     # True for tasks whose step info carries a per-step "success" flag
     has_success = False
+    # True for camera tasks: obs = {"image": [N,1,W,H], "observation"}
+    obs_is_dict = False
 
     def __init__(self, cfg: BaseEnvCfg, device: torch.device):
         if cfg.ctl_mode != "rate":

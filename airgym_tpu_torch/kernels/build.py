@@ -7,7 +7,8 @@ rebuilds). The sources have a plain C interface, so the build needs only
 the CUDA toolkit: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``. Every pointer and the stream cross as
 ``c_void_p``; each entry point returns a ``cudaError_t``, and a non-zero
-one raises.
+one raises. A source may add flags of its own (``extra_flags``), such as
+``-fmad=false`` for a kernel whose plain version must round alike.
 """
 from __future__ import annotations
 
@@ -44,16 +45,23 @@ class CudaKernel:
     touches it.
     """
 
-    def __init__(self, name: str, entry_points: Dict[str, list]):
+    def __init__(self, name: str, entry_points: Dict[str, list],
+                 extra_flags: Iterable[str] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.entry_points = entry_points
+        self.extra_flags = list(extra_flags)
         self.launches = collections.Counter()
         self.build_log = ""
         self._lib = None
 
+    def flags(self) -> list:
+        """nvcc flags, read at build time (so the module's NVCC_FLAGS
+        count) plus this source's own."""
+        return NVCC_FLAGS + self.extra_flags
+
     def so_path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self.flags()).encode())
         for src in [self.source] + sorted(CSRC.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
@@ -67,7 +75,7 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [find_nvcc(), *self.flags(), "-I", str(CSRC), "-o", str(tmp),
                str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

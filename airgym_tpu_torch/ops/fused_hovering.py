@@ -17,10 +17,8 @@ Packed state record (field-major [40, N] float32):
 The plain step pieces below (``Rows``, ``control_physics``,
 ``hover_reward``, ``reset_root``, ``apply_reset``) are those of
 ``csrc/quad_step.cuh``; ``ops/fused_rollout.py`` builds the policy
-rollout's plain version from them. The hash RNG is the plain version of
-``csrc/common.cuh``'s: uint32 arithmetic carried in int64 and masked to
-32 bits, so that the bits equal the Pallas kernels' and the CUDA
-kernels' exactly.
+rollout's plain version from them. Their draws come from
+``ops/hash_rng.py``, keyed per 1024-env tile (``rng_base``).
 """
 from __future__ import annotations
 
@@ -31,6 +29,7 @@ import torch
 
 from airgym_tpu_torch.control import px4
 from airgym_tpu_torch.kernels import build
+from airgym_tpu_torch.ops import hash_rng as hr
 from airgym_tpu_torch.ops import transcendental as tm
 from airgym_tpu_torch.physics import quadrotor as qd
 
@@ -42,8 +41,6 @@ _P = qd.x152b_params()
 _G = px4.CascadeGains()
 _DT = 0.01
 _HOVER_MAX_LEN = 2400          # 24 s / 0.01
-
-_M32 = 0xFFFFFFFF
 
 KERNEL = build.CudaKernel("fused_hovering", {"fused_hovering_launch": [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -71,52 +68,18 @@ def unpack_root(s: torch.Tensor) -> torch.Tensor:
     return s[0:13].T
 
 
-def _mulmod(x, c: int):
-    """(x * c) mod 2^32 for x in [0, 2^32) without int64 overflow."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _mix(x):
-    """murmur3-style 32-bit finalizer on int64 values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = _mulmod(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mulmod(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
-
-def _make_uniform(base_key, lanes: torch.Tensor):
-    """Counter-based uniform draws in [0, 1): ``base_key`` is an int or an
-    int64 tensor broadcastable to ``lanes`` (the env index in its
-    1024-env tile). Each call advances the draw counter, starting at 1."""
-    counter = [0]
-    key_part = _mulmod(base_key, 0x9E3779B9)
-    lane_part = (lanes + 0x85EBCA6B) & _M32
-
-    def uniform():
-        counter[0] += 1
-        bits = _mix(key_part ^ lane_part
-                    ^ _mulmod(counter[0], 0xC2B2AE35))
-        return (bits >> 1).to(torch.float32) * (1.0 / 2147483648.0)
-
-    return uniform
-
-
 def rng_base(seed: int, n: int, device) -> tuple:
     """(tile seed [N], lane [N]): the tile and lane come from the env
     index, as in ``common.cuh: tile_seed``."""
     env = torch.arange(n, dtype=torch.int64, device=device)
     tile = env // TILE
-    base = ((int(seed) & _M32) + _mulmod(tile, 0x01000193)) & _M32
+    base = ((int(seed) & hr.M32) + hr.mulmod(tile, 0x01000193)) & hr.M32
     return base, env % TILE
 
 
 def step_uniform(base, lanes, step_i: int):
     """The uniform stream of one step: key = base ^ (step+1) * golden."""
-    return _make_uniform(base ^ _mulmod(step_i + 1, 0x9E3779B1), lanes)
+    return hr.make_uniform(base ^ hr.mulmod(step_i + 1, 0x9E3779B1), lanes)
 
 
 def _quat_from_euler(ax, ay, az):
@@ -375,7 +338,7 @@ def rollout_fused(packed: torch.Tensor, action: torch.Tensor, seed: int,
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     KERNEL.call("fused_hovering_launch", s_in.data_ptr(), *a,
                 out.data_ptr(), rew.data_ptr(), n, steps,
-                int(seed) & _M32, float(motor_alpha),
+                int(seed) & hr.M32, float(motor_alpha),
                 float(1.0 - motor_alpha), int(motor_alpha > 0.0), stream)
     KERNEL.launches["env"] += 1
     return out, rew

@@ -112,8 +112,8 @@ def _check(packed: torch.Tensor, pack: PolicyPack, task: str) -> None:
     if task not in _TASK_OBS:
         raise NotImplementedError(
             f"fused rollout task {task!r} has no fused kernel (tasks: "
-            f"{sorted(_TASK_OBS)}); other tasks take the scan rollout, "
-            f"ROADMAP.md queue A item 7b")
+            f"{sorted(_TASK_OBS)}); other tasks train with the plain "
+            f"rl/ppo.PPO rollout (ROADMAP.md queue A item 7b)")
     obs = _TASK_OBS[task]
     if packed.dtype != torch.float32 or packed.dim() != 2 \
             or packed.shape[0] != _F:

@@ -1,15 +1,20 @@
 """Checkpoints (counterpart of airgym_tpu/rl/checkpoint.py).
 
 * Native format: a torch file of plain tensors and numbers (``save`` /
-  ``load`` / ``restore``): the model state dict, the running stats, the
-  Adam moments and count, lr, epoch and frame. The env state is not
-  saved; a resumed run re-initializes its envs, as the reference does.
+  ``load`` / ``restore``): the model state dict, the running stats (a
+  dict {'image', 'observation'} of them for camera tasks), the Adam
+  moments and count, lr, epoch and frame. The env state is not saved; a
+  resumed run re-initializes its envs, as the reference does.
 * ``export_pth`` / ``import_pth``: the reference .pth layout
-  (``model`` = actor_mlp.layers.N.*, mu.*, value_head.*, logstd,
-  running_mean_std.*, value_mean_std.* with float64 stats), which the JAX
-  package's ``import_pth`` / ``export_pth`` also read and write.
+  (``model`` = actor_mlp.layers.N.*, mu.*, value_head.*, logstd, the CNN's
+  actor_cnn.features.{0,3,6} convs, .features.{2,5,8} batch norms and
+  actor_cnn.fc, running_mean_std.* or, for dict obs,
+  running_mean_std.running_mean_std.{image,observation}.*, and
+  value_mean_std.*, stats in float64), which the JAX package's
+  ``import_pth`` / ``export_pth`` also read and write.
 * ``from_jax``: carries a JAX TrainState's parameters, running stats and
-  Adam state, given as numpy pytrees, into the native format.
+  Adam state, given as numpy pytrees, into the native format (flax HWIO
+  conv kernels become torch OIHW).
 """
 from __future__ import annotations
 
@@ -23,15 +28,19 @@ import torch
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
 
 
-def _rms_payload(rms: Optional[RunningMeanStd]):
+def _rms_payload(rms):
     if rms is None:
         return None
+    if isinstance(rms, dict):
+        return {k: _rms_payload(r) for k, r in rms.items()}
     return {k: getattr(rms, k).detach().cpu() for k in ("mean", "var", "count")}
 
 
-def _rms_from_payload(d, device) -> Optional[RunningMeanStd]:
+def _rms_from_payload(d, device):
     if d is None:
         return None
+    if "mean" not in d:                      # dict obs: one entry per key
+        return {k: _rms_from_payload(r, device) for k, r in d.items()}
     return RunningMeanStd(*(d[k].to(device=device, dtype=torch.float64)
                             for k in ("mean", "var", "count")))
 
@@ -48,6 +57,8 @@ def payload(ts) -> Dict[str, Any]:
         "lr": float(ts.lr),
         "epoch": int(ts.epoch),
         "frame": int(ts.frame),
+        "adv_ms": (None if ts.adv_ms is None
+                   else [x.detach().cpu() for x in ts.adv_ms]),
     }
 
 
@@ -72,8 +83,11 @@ def restore(ts, ck: Dict[str, Any]):
                                           dtype=torch.float32).reshape(1)}
     else:
         adam = ts.adam
+    adv_ms = ts.adv_ms
+    if ck.get("adv_ms") is not None and adv_ms is not None:
+        adv_ms = type(adv_ms)(*(x.to(dev) for x in ck["adv_ms"]))
     return dataclasses.replace(
-        ts, adam=adam,
+        ts, adam=adam, adv_ms=adv_ms,
         obs_rms=_rms_from_payload(ck.get("obs_rms"), dev) or ts.obs_rms,
         value_rms=_rms_from_payload(ck.get("value_rms"), dev) or ts.value_rms,
         lr=torch.tensor(ck.get("lr", float(ts.lr)), dtype=torch.float32,
@@ -97,7 +111,10 @@ def model_state_dict(model, obs_rms=None, value_rms=None) -> Dict[str, Any]:
     out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     if value_rms is not None:
         _rms_to_ref(value_rms, "value_mean_std", out)
-    if obs_rms is not None:
+    if isinstance(obs_rms, dict):
+        for key, rms in obs_rms.items():
+            _rms_to_ref(rms, f"running_mean_std.running_mean_std.{key}", out)
+    elif obs_rms is not None:
         _rms_to_ref(obs_rms, "running_mean_std", out)
     return out
 
@@ -139,8 +156,12 @@ def import_pth(path: str, model, obs_rms=None, value_rms=None):
 
     meta = {"epoch": int(ck.get("epoch", 0)), "frame": int(ck.get("frame", 0)),
             "last_mean_rewards": float(ck.get("last_mean_rewards", -1e9))}
-    return rms("running_mean_std", obs_rms), rms("value_mean_std",
-                                                 value_rms), meta
+    if isinstance(obs_rms, dict):
+        obs_rms = {k: rms(f"running_mean_std.running_mean_std.{k}", r)
+                   for k, r in obs_rms.items()}
+    else:
+        obs_rms = rms("running_mean_std", obs_rms)
+    return obs_rms, rms("value_mean_std", value_rms), meta
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +172,31 @@ def _get(x, name):
     return x[name] if isinstance(x, dict) else getattr(x, name)
 
 
+_BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
 def _jax_params_to_ref(p) -> Dict[str, torch.Tensor]:
-    """flax ActorCritic params (numpy) -> reference-layout tensors."""
+    """flax ActorCritic params (numpy) -> reference-layout tensors (with
+    the CNN's batch-norm statistics, which flax keeps as parameters)."""
     p = p.get("params", p)
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
     out = {}
+    if "actor_cnn" in p:
+        cnn = p["actor_cnn"]
+        for i, (ci, bi) in enumerate(((0, 2), (3, 5), (6, 8))):
+            c, b = cnn[f"conv{i}"], cnn[f"bn{i}"]
+            pre = "actor_cnn.features"
+            # flax HWIO -> torch OIHW
+            out[f"{pre}.{ci}.weight"] = t(c["kernel"]).permute(3, 2, 0, 1)
+            out[f"{pre}.{ci}.bias"] = t(c["bias"])
+            out[f"{pre}.{bi}.weight"] = t(b["scale"])
+            out[f"{pre}.{bi}.bias"] = t(b["bias"])
+            out[f"{pre}.{bi}.running_mean"] = t(b["mean"])
+            out[f"{pre}.{bi}.running_var"] = t(b["var"])
+            out[f"{pre}.{bi}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+        out["actor_cnn.fc.weight"] = t(cnn["fc"]["kernel"]).T
+        out["actor_cnn.fc.bias"] = t(cnn["fc"]["bias"])
     mlp = p["actor_mlp"]
     for i in range(len(mlp)):
         out[f"actor_mlp.layers.{i}.weight"] = t(mlp[f"Dense_{i}"]["kernel"]).T
@@ -172,6 +213,8 @@ def _jax_rms(rms) -> Optional[Dict[str, torch.Tensor]]:
     """Fold each field with its Neumaier carry into float64."""
     if rms is None:
         return None
+    if isinstance(rms, dict):
+        return {k: _jax_rms(r) for k, r in rms.items()}
 
     def full(name):
         v = np.asarray(_get(rms, name), np.float64)
@@ -199,9 +242,13 @@ def from_jax(params_np, obs_rms_np, value_rms_np, adam_np=None,
         "epoch": 0, "frame": 0,
     }
     if adam_np is not None:
+        # the batch-norm statistics are buffers here, not parameters
+        moments = lambda tree: {
+            k: v for k, v in _jax_params_to_ref(tree).items()
+            if k.rsplit(".", 1)[-1] not in _BN_BUFFERS}
         ck["adam"] = {
-            "m": _jax_params_to_ref(_get(adam_np, "mu")),
-            "v": _jax_params_to_ref(_get(adam_np, "nu")),
+            "m": moments(_get(adam_np, "mu")),
+            "v": moments(_get(adam_np, "nu")),
             "count": torch.tensor([float(np.asarray(_get(adam_np, "count")))],
                                   dtype=torch.float32)}
     if lr is not None:

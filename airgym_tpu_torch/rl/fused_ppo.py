@@ -40,15 +40,15 @@ class FusedHoveringPPO(ppo_mod.PPO):
         if task.cfg.num_envs % fr.TILE:
             raise NotImplementedError(
                 f"num_envs={task.cfg.num_envs} is not a multiple of "
-                f"{fr.TILE}: the scan rollout for other counts is ROADMAP.md "
-                f"queue A item 7b")
+                f"{fr.TILE}: other counts train with the plain rl/ppo.PPO "
+                f"(ROADMAP.md queue A item 7b), as the runner picks it")
         net = dict(network_kw or {})
         if tuple(net.get("units", fr.UNITS)) != fr.UNITS \
                 or net.get("activation", "elu") != "elu":
             raise NotImplementedError(
                 f"the fused kernels run the [64,128,64] elu net, got "
-                f"{net}: other nets need the scan rollout and the non-fused "
-                f"update, ROADMAP.md queue A item 7b")
+                f"{net}: other nets train with the plain rl/ppo.PPO "
+                f"(ROADMAP.md queue A items 7b, 12d), as the runner picks it")
         self._motor_alpha = qd.motor_alpha(task.params)
         super().__init__(task, cfg, network_kw=network_kw)
 

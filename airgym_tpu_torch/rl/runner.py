@@ -6,8 +6,14 @@ the task and the trainer, and runs the epochs: per logged epoch it prints
 the fps line and records the host-side metrics, and it writes native and
 .pth checkpoints at ``save_frequency``, on a new best reward after
 ``save_best_after``, and at the end. A task with a success notion
-(Balloon) also keeps a ``<name>_best_success`` checkpoint of the best
-logged success rate.
+(Balloon, Planning) also keeps a ``<name>_best_success`` checkpoint of
+the best logged success rate.
+
+The trainer is chosen as in the JAX runner: the fused trainer of the
+task when the YAML asks for it (``use_fused_rollout``) and the config is
+one its kernels cover (rate mode, a multiple of 1024 envs, the
+[64,128,64] elu shared-trunk fixed-sigma net), otherwise the plain
+``PPO`` (camera tasks, Balloon's shipped 64 envs, other nets).
 
 Play / eval, the metrics writer and multi-GPU runs are ROADMAP.md queue A
 items 9b and 15.
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from airgym_tpu_torch import envs
+from airgym_tpu_torch.ops import fused_rollout as fr
 from airgym_tpu_torch.rl import checkpoint as ckpt
 from airgym_tpu_torch.rl import ppo as ppo_mod
 from airgym_tpu_torch.rl.fused_ppo import (FusedBalloonPPO, FusedHoveringPPO,
@@ -48,9 +55,14 @@ def network_kw_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
     space = net.get("space", {}).get("continuous", {})
     if "fixed_sigma" in space and not space["fixed_sigma"]:
         kw["fixed_sigma"] = False
+    # encoder priority of the reference model build (resnet, cnn, vae)
     for enc in ("resnet", "cnn", "vae"):
         if enc in net:
             kw["image_encoder"] = enc
+            if enc == "cnn":
+                kw["image_feature_dim"] = int(net["cnn"].get("output_dim",
+                                                             30))
+            break
     return kw
 
 
@@ -107,29 +119,25 @@ class Runner:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         env_kw = dict(cfg.get("env_config", {}) or {})
         env_kw.pop("seed", None)
-        if env_kw.pop("use_image", False):
-            raise NotImplementedError(
-                "image observations are not ported yet: ROADMAP.md queue A "
-                "items 11-12")
+        use_image = env_kw.pop("use_image", None)
         task = envs.make_task(task_name, ctl_mode=ctl_mode,
                               num_envs=num_envs, device=args.get("device"),
                               **env_kw)
+        if use_image is not None and bool(use_image) != task.obs_is_dict:
+            raise ValueError(
+                f"env_config.use_image={use_image} contradicts task "
+                f"{task_name!r} (obs_is_dict={task.obs_is_dict})")
         network_kw = network_kw_from_params(self.params)
-        if not (cfg.get("use_fused_rollout") and ctl_mode == "rate"
-                and num_envs % 1024 == 0
-                and not network_kw.get("separate")
-                and network_kw.get("fixed_sigma", True)):
-            raise NotImplementedError(
-                "only the fused trainer (use_fused_rollout, rate mode, "
-                "num_envs % 1024 == 0, shared-trunk fixed-sigma net) is "
-                "ported: ROADMAP.md queue A item 7b (scan rollout and "
-                "non-fused update)")
-        if task_name not in FUSED_TRAINERS:
-            raise NotImplementedError(
-                f"task {task_name!r} has no fused trainer: the scan rollout "
-                f"is ROADMAP.md queue A item 7b")
-        trainer = FUSED_TRAINERS[task_name](
-            task, ppo_config_from_params(self.params), network_kw=network_kw)
+        fused = (cfg.get("use_fused_rollout") and ctl_mode == "rate"
+                 and task_name in FUSED_TRAINERS
+                 and num_envs % fr.TILE == 0
+                 and tuple(network_kw.get("units", fr.UNITS)) == fr.UNITS
+                 and network_kw.get("activation", "elu") == "elu"
+                 and not network_kw.get("separate")
+                 and network_kw.get("fixed_sigma", True))
+        trainer_cls = FUSED_TRAINERS[task_name] if fused else ppo_mod.PPO
+        trainer = trainer_cls(task, ppo_config_from_params(self.params),
+                              network_kw=network_kw)
         return task, trainer, seed
 
     def run(self, args: Dict[str, Any]):

@@ -31,9 +31,16 @@ class RunningMeanStd(NamedTuple):
     def update(self, batch: torch.Tensor) -> "RunningMeanStd":
         """Merge the statistics of ``batch`` (batch axes = leading axes)."""
         dims = tuple(range(batch.dim() - self.mean.dim()))
-        b = batch.to(torch.float64)
-        b_mean = torch.mean(b, dim=dims)
-        b_var = torch.var(b, dim=dims, unbiased=False)
+        if batch.dtype in (torch.float32, torch.float64):
+            b = batch.to(torch.float64)
+            b_mean = torch.mean(b, dim=dims)
+            b_var = torch.var(b, dim=dims, unbiased=False)
+        else:
+            # bf16 camera frames: reduce in float32 as the JAX package
+            # does (a float64 copy would be 4x the frame buffer)
+            b_var, b_mean = torch.var_mean(batch.to(torch.float32),
+                                           dim=dims, unbiased=False)
+            b_var, b_mean = b_var.to(torch.float64), b_mean.to(torch.float64)
         b_count = batch.numel() / max(self.mean.numel(), 1)
         delta = b_mean - self.mean
         tot = self.count + b_count

@@ -31,7 +31,17 @@ Phases, each of which exits non-zero on failure:
      (configs/ppo_tracking.yaml) for 3 epochs each through the runner,
      counters checked (Balloon: 1 rollout + 640 update launches per epoch,
      Tracking: 1 + 480), save and reload each, and profile one epoch each;
- 11. time the new kernels and their plain versions, and print one JSON
+ 11. time the new kernels and their plain versions;
+ 12. hold the fused render + post-process kernel against its plain
+     version: at Planning's full shape (4096 envs, 212 x 120, 40 trees, a
+     goal ball and the ground, culled at 4.5 m, after some env steps), on
+     a one-box scene like Avoid's (too small to cull: the unguarded
+     chain) and on a 256-env scene of all four record kinds;
+ 13. train Planning (configs/ppo_planning.yaml, 4096 envs) for 3 epochs
+     through the runner with the render counter set to 0 before and read
+     after (1 launch at init, 6 per epoch), save and reload the
+     checkpoint, and profile one epoch (render, convs, the rest);
+ 14. time the render kernel and its plain version, and print one JSON
      line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -66,6 +76,15 @@ PEAK_BYTES = 3.35e12
 # one; the hash's integer work not counted): controller ~140, physics
 # ~180, hovering reward ~150, reset float math ~110
 ENV_STEP_OPS = 580
+# FP32 operations of the render kernel, counted by hand from
+# csrc/raycast.cuh and csrc/render_process.cu (each division and square
+# root as one; the hash's integer work not counted): per pixel the ray and
+# the ground ~37 and the post-processing ~80, per pixel and record a
+# cylinder ~58, a sphere ~20, a box ~45, an annulus ~90
+RENDER_PIXEL_OPS = 37 + 80
+RENDER_RECORD_OPS = (58, 20, 45, 90)
+RENDER_ATOL = 1e-5              # the JAX suite's (tests/test_fused_render.py)
+PLANNING_EPOCHS = 3
 
 
 def fail(msg):
@@ -246,7 +265,7 @@ def update_vs_plain(fu, args, kw, tag):
 
 
 def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
-                     probe_gen, num_envs=None):
+                     probe_gen, kernels, num_envs=None):
     """Train through the runner; save / reload the native checkpoint and
     the reference .pth. Returns (a trainer of the run's config, the run's
     TrainState, the run info)."""
@@ -261,6 +280,8 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
     ts_run, info = runner.run_train(args)
     torch.cuda.synchronize()
     info["train_s"] = time.time() - t0
+    # the launch counts of the run itself (reloading may launch again)
+    info["launches"] = {k.name: dict(k.launches) for k in kernels}
     for row in info["history"]:
         print(f"[train {task}] epoch {row['epoch']}: mean_reward "
               f"{row['mean_reward']:.4f} loss {row['loss']:.5f} kl "
@@ -284,6 +305,11 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
     ckpt.import_pth(info["checkpoint"][:-3] + ".pth", model2)
     probe = torch.randn((64, trainer.task.num_obs), generator=probe_gen,
                         device="cuda")
+    if trainer.obs_is_dict:
+        cam = trainer.task.cam_cfg
+        probe = {"observation": probe, "image": torch.rand(
+            (64, 1, cam.width, cam.height), generator=probe_gen,
+            device="cuda")}
     with torch.no_grad():
         mu_a, _, v_a = ts_run.model(probe)
         mu_b, _, v_b = model2(probe)
@@ -294,32 +320,189 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
     return trainer, ts_run, info
 
 
-def profile_epoch(trainer, ts, tag):
+def profile_epoch(trainer, ts, tag, groups=None):
     """One warm epoch, then one under torch.profiler: wall, device busy,
-    the top kernels by device time."""
+    the top kernels by device time. The profiler slows the host, so the
+    busy time is also set against the warm epoch's own wall."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ts_prof = trainer.train_epoch(ts)[0]               # warm
     torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_epoch(ts_prof)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
+    # the device's own events (kernels, copies, memsets) only: an aten
+    # op's self device time repeats the kernels it launched, and summing
+    # both would count that time twice
+    cpu = torch.autograd.DeviceType.CPU
+    rows, op_rows = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
+            on_device = getattr(e, "device_type", cpu) != cpu
+            (rows if on_device else op_rows).append(
+                (us / 1e3, e.count, e.key))
+    if not rows:
+        # this torch tags no event with a device: the aten ops' self device
+        # time is all there is, and it counts some kernels twice
+        print(f"[profile {tag}] WARNING: no device-typed profiler events; "
+              f"the busy time below sums aten ops' self device time and may "
+              f"count a kernel twice", flush=True)
+        rows, op_rows = op_rows, []
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile {tag}] one epoch: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) under the "
-          f"profiler", flush=True)
+          f"profiler, from {len(rows)} device event kinds; the warm epoch "
+          f"unprofiled: wall {warm_ms:.2f} ms, so busy "
+          f"{100 * busy_ms / warm_ms:.1f}% for the same device work",
+          flush=True)
+    if groups:
+        by = {name: 0.0 for name in groups}
+        by["the rest"] = 0.0
+        for ms, _, key in rows:
+            low = key.lower()
+            hit = [name for name, words in groups.items()
+                   if any(w in low for w in words)]
+            by[hit[0] if hit else "the rest"] += ms
+        print(f"[profile {tag}] device time by part: " + ", ".join(
+            f"{name} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
+            for name, ms in by.items()), flush=True)
     for ms, count, key in rows[:8]:
         print(f"[profile {tag}]   {ms:8.3f} ms  x{count:<5d} {key[:70]}",
               flush=True)
+
+
+def render_bound(inp, live_mean):
+    """(bound ms, what bounds it) of one render: the operations of the
+    records that survive culling (their mean per env), the bytes of the
+    inputs read once and the image written once."""
+    n = inp.origins.shape[0]
+    pix = n * inp.cfg.width * inp.cfg.height
+    ops = pix * (RENDER_PIXEL_OPS + sum(
+        c * k for c, k in zip(live_mean, RENDER_RECORD_OPS)))
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        inp.origins, inp.rots, inp.prims, inp.live, inp.taps))
+    nbytes += 4 * n + 4 * pix                # seeds as uint32, the image
+    return bound_ms(ops, nbytes)
+
+
+def render_vs_plain(rc, inp, tag):
+    """Kernel vs plain on the same inputs: max error, pixels over
+    RENDER_ATOL, and three checks. Each env's over-tolerance pixels fit in
+    one 5 x 5 neighbourhood (one grazing ray flipped between hit and miss
+    spreads through the blur to at most 5 x 5 pixels); at most
+    max(1, N / 1000) envs hold such pixels at all; and no pixel is off by
+    more than 1e-2 of the image maximum."""
+    out_k = rc.render_process_packed(inp)
+    out_p = rc.render_process_packed_plain(inp)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), f"render {tag}: not finite")
+    err = (out_k - out_p).abs()[:, 0]                       # [N, W, H]
+    bad = err > RENDER_ATOL
+    n_bad = int(bad.sum())
+    envs_bad = torch.nonzero(bad.any(dim=2).any(dim=1))[:, 0].tolist()
+    max_envs_bad = max(1, out_k.shape[0] // 1000)
+    worst = 0
+    for e in envs_bad[:max_envs_bad + 1]:
+        u, v = torch.nonzero(bad[e], as_tuple=True)
+        span = max(int(u.max() - u.min()), int(v.max() - v.min())) + 1
+        worst = max(worst, span)
+    live = inp.live.to(torch.float32).mean(0).tolist()
+    print(f"[render {tag}] N={out_k.shape[0]} {inp.cfg.width}x"
+          f"{inp.cfg.height} records {inp.prims.shape[1]} live per env "
+          f"{[round(x, 3) for x in live]}: max|err| {float(err.max()):.3e} "
+          f"pixels over {RENDER_ATOL:g}: {n_bad} in {len(envs_bad)} envs "
+          f"(widest span {worst} px); image max {float(out_p.max()):.3f}",
+          flush=True)
+    check(worst <= 5, f"render {tag}: an env's pixels over tolerance span "
+                      f"{worst} px, more than one 5x5 neighbourhood")
+    check(len(envs_bad) <= max_envs_bad,
+          f"render {tag}: {len(envs_bad)} envs hold pixels over tolerance, "
+          f"more than {max_envs_bad}")
+    img_max = float(out_p.max())
+    check(float(err.max()) <= 1e-2 * img_max,
+          f"render {tag}: max|err| {float(err.max()):.3e} exceeds 1e-2 of "
+          f"the image max {img_max:.3f}")
+    check(img_max > 0.0, f"render {tag}: blank images")
+    return float(err.max()), live
+
+
+def render_checks(envs, rc, dev):
+    """Phase 12: the render kernel at Planning's full shape (guarded),
+    on a box scene (unguarded) and on a scene of all four kinds.
+    Returns (max error, (Planning's inputs, their live records per env))."""
+    from airgym_tpu_torch.physics import scene as sc
+    from airgym_tpu_torch.render import depth as dr
+    task = envs.make_task("planning", num_envs=4096, device=dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    st = task.initial_state(g)
+    for _ in range(30):                        # the drones move and turn
+        a = torch.rand((4096, 4), generator=g, device=dev) * 1.2 - 0.6
+        a[:, 3] = -0.69 + 0.1 * a[:, 3]
+        st, _ = task.step(st, a, g, render=False)
+    root = st.core.root
+    inp = rc.prepare(task.cam_cfg, root, task.scene(st), 987654321,
+                     task.cam_cfg.depth_clamp)
+    check(inp.prims.shape[1] == 48 and inp.counts == (40, 1, 0, 0),
+          f"planning scene packs as {inp.counts} in {inp.prims.shape[1]}")
+    err_p, live = render_vs_plain(rc, inp, "planning 4096 guarded")
+
+    rng = torch.Generator(device=dev).manual_seed(22)
+    u = lambda *shape: torch.rand(shape, generator=rng, device=dev)
+    n = 1024
+    box_root = root[:n].clone()
+    box_root[:, 0:3] = torch.stack([u(n) - 0.5, u(n) - 0.5, 0.8 + 0.4 * u(n)],
+                                   dim=-1)
+    box = sc.Boxes(center=torch.stack([2.0 + 2.0 * u(n), 2.0 * u(n) - 1.0,
+                                       0.3 + u(n)], dim=-1)[:, None],
+                   yaw=(6.0 * u(n) - 3.0)[:, None],
+                   half_extents=(0.2 + 0.3 * u(n, 1, 3)),
+                   valid=torch.ones((n, 1), dtype=torch.bool, device=dev))
+    inp_b = rc.prepare(task.cam_cfg, box_root,
+                       dr.SceneForRender(boxes=box, ground=True), 5, 4.5)
+    check(inp_b.prims.shape[1] == 8 and
+          bool((inp_b.live == torch.tensor([0, 0, 1, 0], device=dev)).all()),
+          "the box scene must run unguarded")
+    err_b, _ = render_vs_plain(rc, inp_b, "box 1024 unguarded")
+
+    n = 256
+    mix_root = root[:n].clone()
+    mix_root[:, 0:3] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+    cyl = sc.Cylinders(
+        center=torch.stack([9 * u(n, 20) - 3, 4 * u(n, 20) - 2,
+                            torch.full((n, 20), 1.2, device=dev)], -1),
+        axis=unit(torch.cat([0.6 * u(n, 20, 2) - 0.3,
+                             torch.ones((n, 20, 1), device=dev)], -1)),
+        half_len=0.8 + 0.8 * u(n, 20), radius=0.05 + 0.35 * u(n, 20),
+        valid=u(n, 20) > 0.1)
+    sph = sc.Spheres(center=torch.stack([0.5 + 3.5 * u(n, 3), 2 * u(n, 3) - 1,
+                                         0.6 + 0.8 * u(n, 3)], -1),
+                     radius=0.1 + 0.3 * u(n, 3),
+                     valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
+    boxes = sc.Boxes(center=torch.stack([1 + 3 * u(n, 3), 3 * u(n, 3) - 1.5,
+                                         0.3 + 1.2 * u(n, 3)], -1),
+                     yaw=6 * u(n, 3) - 3, half_extents=0.1 + 0.4 * u(n, 3, 3),
+                     valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
+    ann = sc.Annuli(center=torch.stack([1.5 + 2 * u(n, 3), 1.6 * u(n, 3) - 0.8,
+                                        0.8 + 0.4 * u(n, 3)], -1),
+                    normal=unit(torch.cat([torch.ones((n, 3, 1), device=dev),
+                                           0.8 * u(n, 3, 2) - 0.4], -1)),
+                    r_in=0.2 + 0.2 * u(n, 3), r_out=0.5 + 0.3 * u(n, 3),
+                    half_thick=0.02 + 0.08 * u(n, 3),
+                    valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
+    inp_m = rc.prepare(task.cam_cfg, mix_root, dr.SceneForRender(
+        cylinders=cyl, spheres=sph, boxes=boxes, annuli=ann, ground=True),
+        77, 4.5)
+    err_m, _ = render_vs_plain(rc, inp_m, "mixed 256 guarded")
+    return max(err_p, err_b, err_m), (inp, live)
 
 
 def main():
@@ -332,6 +515,7 @@ def main():
     from airgym_tpu_torch.ops import fused_hovering as fh
     from airgym_tpu_torch.ops import fused_rollout as fr
     from airgym_tpu_torch.ops import fused_update as fu
+    from airgym_tpu_torch.render import raycast as rc
     from airgym_tpu_torch.rl import checkpoint as ckpt
     from airgym_tpu_torch.rl import runner as runner_mod
     from airgym_tpu_torch.rl.fused_ppo import FusedHoveringPPO
@@ -352,7 +536,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
-    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL]
+    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL]
     secs = build.build_all(kernels)
     print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
     for k in kernels:
@@ -360,6 +544,9 @@ def main():
             if ("registers" in line or "spill" in line or "error" in line
                     or "Compiling entry" in line):
                 print(f"[build] {k.name}: {line.strip()}", flush=True)
+    print(f"[build] render_process: dynamic shared memory "
+          f"{rc.KERNEL.lib().render_process_smem_bytes(48, 212, 120)} bytes "
+          f"per block at 212 x 120 with 48 records", flush=True)
 
     cfg_dir = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
                            "..", "configs")
@@ -404,7 +591,8 @@ def main():
     # ---- 5. train through the runner --------------------------------------
     reset_counts(kernels)
     _, ts_run, info = train_and_reload(runner_mod, ckpt, yaml_cfg,
-                                       "hovering", EPOCHS, run_root, g)
+                                       "hovering", EPOCHS, run_root, g,
+                                       kernels)
     launches = {"hovering": fr.KERNEL.launches["hovering"],
                 "obs18": fu.KERNEL.launches["obs18"]}
     per_epoch_update = 2 * nmb * me
@@ -526,7 +714,7 @@ def main():
         reset_counts(kernels)
         t_trainer, t_ts, t_info = train_and_reload(
             runner_mod, ckpt, load_cfg(name), name, TASK_EPOCHS, run_root, g,
-            num_envs=n_envs)
+            kernels, num_envs=n_envs)
         got = {rkey: fr.KERNEL.launches[rkey], ukey: fu.KERNEL.launches[ukey]}
         print(f"[train {name}] {TASK_EPOCHS} epochs in "
               f"{t_info['train_s']:.2f} s; launches {got}", flush=True)
@@ -571,6 +759,60 @@ def main():
         print(f"[time] {key}: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
               f"bound {b_ms:.4f} by {b_by})", flush=True)
 
+    # ---- 12. the render + post-process kernel vs its plain version ---------
+    render_err, render_case = render_checks(envs, rc, dev)
+
+    # ---- 13. Planning training -----------------------------------------------
+    p_yaml = load_cfg("planning")
+    reset_counts(kernels)
+    p_trainer, p_ts, p_info = train_and_reload(
+        runner_mod, ckpt, p_yaml, "planning", PLANNING_EPOCHS, run_root, g,
+        kernels)
+    got = p_info["launches"]
+    launches["render_process"] = got["render_process"].get(
+        "render_process", 0)
+    want = 1 + PLANNING_EPOCHS * (p_trainer.cfg.horizon
+                                  // p_trainer.cam_every)
+    print(f"[train planning] {PLANNING_EPOCHS} epochs in "
+          f"{p_info['train_s']:.2f} s; launches {got}", flush=True)
+    check(launches["render_process"] == want,
+          f"planning render launches {launches['render_process']} != {want} "
+          f"(1 at init + horizon / cam_every per epoch)")
+    check(sum(sum(v.values()) for k, v in got.items()
+              if k != "render_process") == 0,
+          "planning launched a rollout / update kernel")
+    for row in p_info["history"]:
+        check(0.0 <= row["success_rate"] <= 1.0,
+              f"planning success_rate {row['success_rate']}")
+    print(f"[train planning] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profile_epoch(p_trainer, p_ts, "planning",
+                  groups={"render": ("render_process",),
+                          "convs": ("conv", "cudnn", "implicit", "wgrad",
+                                    "dgrad", "fprop", "winograd", "nchw",
+                                    "nhwc", "im2col")})
+
+    # ---- 14. render kernel timing ---------------------------------------------
+    inp, live_mean = render_case
+    times["render_process"] = (
+        cuda_time_ms(lambda: rc.render_process_packed(inp)),
+        cuda_time_ms(lambda: rc.render_process_packed_plain(inp),
+                     PLAIN_REPS),
+        *render_bound(inp, live_mean))
+    k_ms, p_ms, b_ms, b_by = times["render_process"]
+    print(f"[time] render_process: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
+          f"bound {b_ms:.4f} by {b_by}; records live per env "
+          f"{[round(x, 3) for x in live_mean]})", flush=True)
+    # the same render unculled: every record in every env
+    full = inp._replace(live=torch.tensor(
+        inp.counts, dtype=torch.int32, device=dev)[None].repeat(
+            inp.live.shape[0], 1))
+    u_ms = cuda_time_ms(lambda: rc.render_process_packed(full))
+    ub_ms, ub_by = render_bound(full, list(inp.counts))
+    print(f"[time] render_process unculled: kernel {u_ms:.3f} ms (bound "
+          f"{ub_ms:.4f} by {ub_by}; records per env {list(inp.counts)})",
+          flush=True)
+
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]
         return {"name": name, "route": "cuda",
@@ -591,6 +833,8 @@ def main():
         entry("fused_hovering", "env", "fused_hovering.cu",
               "airgym_tpu/ops/fused_hovering.py:119",
               max(env_err, rew_err)),
+        entry("render_process", "render_process", "render_process.cu",
+              "airgym_tpu/render/pallas_raycast.py:530", render_err),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

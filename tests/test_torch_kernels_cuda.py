@@ -111,3 +111,26 @@ def test_update_kernel_matches_plain(device, B, nmb, obs):
     for key in fu.METRICS:
         torch.testing.assert_close(k[5][key], p[5][key], rtol=5e-3,
                                    atol=5e-4)
+
+
+@pytest.mark.parametrize("cull", [None, 4.5], ids=["unguarded", "guarded"])
+def test_render_kernel_matches_plain(device, cull):
+    """The fused render + post-process kernel on Planning's scene (40
+    trees, the goal ball, the ground) after a few steps, culled or not."""
+    from airgym_tpu_torch import envs
+    from airgym_tpu_torch.render import raycast as rc
+    t = envs.make_task("planning", num_envs=256, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    state = t.initial_state(gen)
+    for _ in range(5):
+        a = torch.rand((256, 4), generator=gen, device=device) - 0.5
+        a[:, 3] = -0.69
+        state, _ = t.step(state, a, gen, render=False)
+    inp = rc.prepare(t.cam_cfg, state.core.root, t.scene(state), 99, cull)
+    before = rc.KERNEL.launches["render_process"]
+    out_k = rc.render_process_packed(inp)
+    assert rc.KERNEL.launches["render_process"] == before + 1
+    out_p = rc.render_process_packed_plain(inp)
+    torch.cuda.synchronize()
+    assert out_k.shape == (256, 1, 212, 120)
+    torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)

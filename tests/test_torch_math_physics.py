@@ -17,6 +17,7 @@ from airgym_tpu.physics import quadrotor as jqd
 from airgym_tpu_torch.control import px4 as tpx4
 from airgym_tpu_torch.math import rotations as trot
 from airgym_tpu_torch.ops import fused_hovering as tfh
+from airgym_tpu_torch.ops import hash_rng
 from airgym_tpu_torch.ops import transcendental as ttm
 from airgym_tpu_torch.physics import quadrotor as tqd
 from test_golden_trajectory import GOLDEN_HOVER_CMD, GOLDEN_RATE_100
@@ -182,7 +183,7 @@ def test_hash_mix_is_bit_exact():
     x = rng.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)
     x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
     ref = np.asarray(jfh._mix(jnp.asarray(x, jnp.uint32)))
-    got = tfh._mix(torch.from_numpy(x.astype(np.int64)))
+    got = hash_rng.mix(torch.from_numpy(x.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), ref)
 
 

@@ -158,4 +158,5 @@ def test_action_limits_per_task():
     assert t.remap_actions(big).tolist() == [[3.0, 3.0, 3.0, 1.0]]
     assert b.has_success and not t.has_success
     assert (b.num_obs, t.num_obs) == (18, 48)
-    assert tenvs.registered_tasks() == ["balloon", "hovering", "tracking"]
+    assert tenvs.registered_tasks() == ["balloon", "hovering", "planning",
+                                        "tracking"]

@@ -260,12 +260,24 @@ def test_cli_trains_task_on_cpu(name, tmp_path, monkeypatch):
 
 
 def test_balloon_yaml_env_count_raises_naming_7b(tmp_path, monkeypatch):
-    """The Balloon YAML ships 64 envs: not a multiple of the kernel tile,
-    and the scan rollout that would run it is not ported."""
+    """The Balloon YAML ships 64 envs, not a multiple of the kernel tile.
+    That raised until queue A item 7b (the plain rollout and update) was
+    ported; now the runner picks the plain trainer and it trains."""
+    with open(REPO / "airgym_tpu_torch" / "configs" / "ppo_balloon.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["params"]["config"].update(horizon_length=8, minibatch_size=256,
+                                   mini_epochs=2, max_epochs=1)
+    path = tmp_path / "balloon64.yaml"
+    path.write_text(yaml.safe_dump(cfg))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli.run_cli(["--train", "--task", "balloon", "--ctl_mode", "rate",
-                     "--device", "cpu"])
+    ts, info = cli.run_cli(["--train", "--task", "balloon", "--file",
+                            str(path), "--device", "cpu"])
+    assert ts.obs.shape == (64, 18) and info["epochs"] == 1
+    assert math.isfinite(info["history"][0]["loss"])
+    from airgym_tpu_torch.rl.runner import Runner
+    _, trainer, _ = Runner().load(cfg).build({"task": "balloon",
+                                             "device": "cpu"})
+    assert type(trainer) is tppo.PPO
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
@@ -279,12 +291,20 @@ def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
                                   "clip_value"])
 def test_configs_outside_the_slice_raise(case):
     """No fallback: what the fused kernels do not cover raises, naming
-    the ROADMAP.md item that will port it."""
+    the ROADMAP.md item that will port it. ``clip_value`` raised until
+    the plain update was ported (queue A item 7b): the fused trainer now
+    hands that update to it, as the JAX trainer does."""
     n = 1000 if case == "num_envs" else N
     task = tenvs.make_task("hovering", num_envs=n, device="cpu")
     net = {"relu": {"activation": "relu"}, "units": {"units": (32, 32)},
            "separate": {"separate": True}}.get(case, {})
     cfg = tppo.PPOConfig(**SMALL, clip_value=case == "clip_value")
+    if case == "clip_value":
+        trainer = FusedHoveringPPO(task, cfg, network_kw=net)
+        ts, m = trainer.train_epoch(trainer.init(0))
+        assert math.isfinite(float(m["loss"]))
+        assert float(ts.adam["count"][0]) == 8 * 3
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer = FusedHoveringPPO(task, cfg, network_kw=net)
         trainer.train_epoch(trainer.init(0))
