@@ -4,7 +4,9 @@
         [--ctl_mode rate] [--num_envs N] [--seed S] [--file cfg.yaml] \
         [--device cuda|cpu]
 
-Tasks: hovering, balloon, tracking, planning. Uses the packaged
+Tasks: hovering, balloon, tracking, planning, avoid, maplanning (DepthGen
+generates datasets: ``make_task("depthgen", num_envs=N).generate(out_dir,
+n_frames)``, no training). Uses the packaged
 airgym_tpu_torch/configs/ppo_<task>.yaml unless --file is given; CLI
 flags override YAML values. ``--ctl_mode`` defaults to rate, the only
 mode ported. Runs on ``cuda`` unless ``--device cpu`` is given, and

@@ -1,7 +1,7 @@
 """Task registry (counterpart of airgym_tpu/envs/__init__.py).
 
-Ported: Hovering, Balloon, Tracking and Planning. Every other task of
-the JAX package is still to come (ROADMAP.md queue A items 11-13) and
+Ported: Hovering, Balloon, Tracking, Planning, Avoid, MAPlanning and
+DepthGen. Customized is still to come (ROADMAP.md queue A item 11), and
 ``make_task`` refuses it.
 """
 from __future__ import annotations
@@ -9,21 +9,23 @@ from __future__ import annotations
 import dataclasses
 
 from airgym_tpu_torch import device as device_mod
+from airgym_tpu_torch.envs.avoid import Avoid, AvoidCfg
 from airgym_tpu_torch.envs.balloon import Balloon, BalloonCfg
+from airgym_tpu_torch.envs.depthgen import DepthGen, DepthGenCfg
 from airgym_tpu_torch.envs.hovering import Hovering, HoveringCfg
+from airgym_tpu_torch.envs.maplanning import MAPlanning, MAPlanningCfg
 from airgym_tpu_torch.envs.planning import Planning, PlanningCfg
 from airgym_tpu_torch.envs.tracking import Tracking, TrackingCfg
 
 _REGISTRY = {"hovering": (Hovering, HoveringCfg),
              "balloon": (Balloon, BalloonCfg),
              "tracking": (Tracking, TrackingCfg),
-             "planning": (Planning, PlanningCfg)}
+             "planning": (Planning, PlanningCfg),
+             "avoid": (Avoid, AvoidCfg),
+             "maplanning": (MAPlanning, MAPlanningCfg),
+             "depthgen": (DepthGen, DepthGenCfg)}
 
-_NOT_PORTED = {
-    "avoid": "queue A item 12b",
-    "customized": "queue A item 11", "maplanning": "queue A item 13",
-    "depthgen": "queue A item 13",
-}
+_NOT_PORTED = {"customized": "queue A item 11"}
 
 
 def registered_tasks():

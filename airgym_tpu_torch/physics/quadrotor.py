@@ -115,3 +115,16 @@ def step(params: QuadrotorParams, state: torch.Tensor,
 def hover_command(params: QuadrotorParams) -> float:
     """Per-rotor command that cancels gravity (~0.1537 for the X152b)."""
     return params.mass * params.gravity / (4.0 * params.thrust_scale)
+
+
+def ballistic_step(dt: float, gravity: float,
+                   states: torch.Tensor) -> torch.Tensor:
+    """One step of free-flying env assets (Avoid's thrown cube) [.., 13]
+    under gravity alone, semi-implicit like ``step``."""
+    pos, q, v, w = (states[..., 0:3], states[..., 3:7], states[..., 7:10],
+                    states[..., 10:13])
+    g = torch.tensor([0.0, 0.0, -gravity], dtype=states.dtype,
+                     device=states.device)
+    v_new = v + dt * g
+    pos_new = pos + dt * v_new
+    return torch.cat([pos_new, q, v_new, w], dim=-1)

@@ -7,11 +7,13 @@ Images are perpendicular (z-) depth in the layout [N, 1, W=212, H=120].
 
 ``render_depth`` is the plain, uncull'd renderer: a fold of
 physics/scene.py's ray casts over the primitives, kept as the test oracle
-of the fused kernel. ``render_and_process`` is what the tasks call: the
-depth render plus the reference's post-processing (clamp at 4.5 m,
-normalise, additive and multiplicative noise, an unnormalised random 5x5
-blur) as one fused kernel on the card (render/raycast.py,
-csrc/render_process.cu), its plain version on the CPU.
+of the kernels. What the tasks call: ``render_and_process``, the depth
+render plus the reference's post-processing (clamp at 4.5 m, normalise,
+additive and multiplicative noise, an unnormalised random 5x5 blur) as
+one fused kernel on the card (render/raycast.py, csrc/render_process.cu;
+Planning, Avoid), and ``render_depth_auto``, the raw z-depth kernel
+(csrc/render_depth.cu; MAPlanning, DepthGen, which clamp and normalise
+the clean image themselves); each runs its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -109,6 +111,28 @@ def render_depth(cfg: CameraCfg, root_states: torch.Tensor,
             t_eu = torch.minimum(t_eu, fn(o, dirs_u, one))
     # euclidean t -> z-depth (the unnormalised direction has x == 1)
     return (t_eu / norm).reshape(n, cfg.width, cfg.height)
+
+
+def render_depth_auto(cfg: CameraCfg, root_states: torch.Tensor,
+                      scene: SceneForRender, cull_far_z=None) -> torch.Tensor:
+    """Raw z-depth images [N, W, H]: the raw depth kernel on the card
+    (render/raycast.render_depth_fused), its plain version on the CPU.
+    ``cull_far_z``: optional culling, exact for images clipped at that
+    depth afterwards."""
+    from airgym_tpu_torch.render import raycast
+    return raycast.render_depth_fused(cfg, root_states, scene, cull_far_z)
+
+
+def render_clean(cfg: CameraCfg, root_states: torch.Tensor,
+                 scene: SceneForRender) -> torch.Tensor:
+    """The clean image [N, 1, W, H] of MAPlanning and DepthGen: the raw
+    z-depth clamped at ``depth_clamp`` and normalised, in place, with no
+    noise and no blur."""
+    clamp = cfg.depth_clamp
+    depth = render_depth_auto(cfg, root_states, scene)
+    # a 0-d divisor: a true division on the card as on the CPU
+    return depth.clamp_(0.0, clamp).div_(torch.tensor(
+        clamp, dtype=depth.dtype, device=depth.device))[:, None]
 
 
 def render_and_process(cfg: CameraCfg, root_states: torch.Tensor,

@@ -1,13 +1,17 @@
-"""Fused depth render + post-processing (counterpart of
+"""The depth camera's two kernels (counterpart of
 airgym_tpu/render/pallas_raycast.py).
 
 ``render_process`` renders every env's camera image and post-processes it
 in one kernel on the card (``csrc/render_process.cu`` on
-``csrc/raycast.cuh``): the raw depth never reaches device memory. For CPU
-tensors it runs ``render_process_plain``, which repeats the kernel's
-arithmetic in the same order; the tests hold it against the Pallas kernel
-(interpret mode) and against ``postprocess_hash(render_depth(...))``, and
-``chip_smoke.py`` holds the CUDA kernel against it.
+``csrc/raycast.cuh``): the raw depth never reaches device memory.
+``render_depth_fused`` renders the raw z-depth [N, W, H] alone
+(``csrc/render_depth.cu`` on the same caster), for the tasks that
+clamp and normalise the clean image themselves (MAPlanning, DepthGen).
+For CPU tensors each runs its plain version, which repeats the kernel's
+arithmetic in the same order through one shared caster
+(``_cast_record``, ``_cast_chunk``); the tests hold the plain versions
+against the Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
+the CUDA kernels against them.
 
 Around the kernel, in plain PyTorch as the JAX package has them in XLA:
 ``pack_scene`` (the [N, P, 12] record table, layout in raycast.cuh),
@@ -50,6 +54,13 @@ KERNEL = build.CudaKernel(
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p],
      "render_process_smem_bytes": [ctypes.c_int] * 3},
+    extra_flags=["-fmad=false"])
+
+DEPTH_KERNEL = build.CudaKernel(
+    "render_depth",
+    {"render_depth_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+     "render_depth_smem_bytes": [ctypes.c_int]},
     extra_flags=["-fmad=false"])
 
 
@@ -261,14 +272,15 @@ def postprocess_hash(cfg: dr.CameraCfg, depth: torch.Tensor,
 
 
 class RenderInputs(NamedTuple):
-    """Everything the kernel reads, as the wrapper hands it over."""
+    """Everything a kernel reads, as the wrapper hands it over. The raw
+    depth kernel reads no noise: its inputs have no seeds and no taps."""
     cfg: dr.CameraCfg
     origins: torch.Tensor       # [N, 8] f32: camera origin, padded
     rots: torch.Tensor          # [N, 16] f32: body matrix row-major, padded
     prims: torch.Tensor         # [N, P, 12] f32 packed records
     live: torch.Tensor          # [N, 4] int32 live records per kind
-    seeds: torch.Tensor         # [N] int64 holding the uint32 env keys
-    taps: torch.Tensor          # [N, 1, 32] f32
+    seeds: Optional[torch.Tensor]   # [N] int64 holding the uint32 env keys
+    taps: Optional[torch.Tensor]    # [N, 1, 32] f32
     counts: tuple               # static records per kind
     ground: bool
 
@@ -279,12 +291,12 @@ def _tans(cfg: dr.CameraCfg):
 
 
 def prepare(cfg: dr.CameraCfg, root_states: torch.Tensor,
-            scene: dr.SceneForRender, seed,
+            scene: dr.SceneForRender, seed=None,
             cull_far_z: Optional[float] = None) -> RenderInputs:
-    """Camera pose, packed (and optionally culled) scene, env seeds and
-    taps from the drones' root states [N, 13]."""
-    if cfg.height > LANES - 2:
-        raise ValueError(f"fused render+process requires H <= {LANES - 2}")
+    """Camera pose and packed (and optionally culled) scene from the
+    drones' root states [N, 13], plus the env seeds and blur taps of the
+    post-processing when ``seed`` is given (the fused render + process
+    kernel); without a seed, the raw depth kernel's inputs."""
     n, dev = root_states.shape[0], root_states.device
     q = root_states[:, 3:7]
     m = rot.quat_to_matrix(q).reshape(n, 9).to(torch.float32)
@@ -302,25 +314,33 @@ def prepare(cfg: dr.CameraCfg, root_states: torch.Tensor,
     else:
         live = torch.tensor(counts, dtype=torch.int32,
                             device=dev)[None].repeat(n, 1)
-    seeds = _env_seeds(seed, n, dev)
+    seeds = taps = None
+    if seed is not None:
+        seeds = _env_seeds(seed, n, dev)
+        taps = _hash_kernel_taps(seeds)
     pad = torch.nn.functional.pad
     return RenderInputs(cfg=cfg, origins=pad(origin, (0, 5)),
                         rots=pad(m, (0, 7)), prims=prims.contiguous(),
-                        live=live.contiguous(), seeds=seeds,
-                        taps=_hash_kernel_taps(seeds), counts=counts,
-                        ground=bool(scene.ground))
+                        live=live.contiguous(), seeds=seeds, taps=taps,
+                        counts=counts, ground=bool(scene.ground))
 
 
-def _check(inp: RenderInputs) -> None:
+def _check(inp: RenderInputs, noise: bool) -> None:
+    """Types, shapes and devices of the inputs; ``noise``: the fused
+    kernel's seeds and taps too."""
     n = inp.origins.shape[0]
     dev = inp.origins.device
     p = inp.prims.shape[1] if inp.prims.dim() == 3 else -1
     want = {"origins": (inp.origins, (n, 8), torch.float32),
             "rots": (inp.rots, (n, 16), torch.float32),
             "prims": (inp.prims, (n, p, 12), torch.float32),
-            "live": (inp.live, (n, 4), torch.int32),
-            "seeds": (inp.seeds, (n,), torch.int64),
-            "taps": (inp.taps, (n, 1, 32), torch.float32)}
+            "live": (inp.live, (n, 4), torch.int32)}
+    if noise:
+        if inp.seeds is None or inp.taps is None:
+            raise ValueError("render + process needs the env seeds and taps: "
+                             "prepare(..., seed) with a seed")
+        want.update(seeds=(inp.seeds, (n,), torch.int64),
+                    taps=(inp.taps, (n, 1, 32), torch.float32))
     for name, (x, shape, dtype) in want.items():
         if tuple(x.shape) != shape or x.dtype != dtype or x.device != dev:
             raise ValueError(f"{name}: want {dtype} {shape} on {dev}, got "
@@ -329,11 +349,39 @@ def _check(inp: RenderInputs) -> None:
         raise ValueError(f"counts {inp.counts} exceed the {p} records")
 
 
+def render_depth_packed(inp: RenderInputs) -> torch.Tensor:
+    """Kernel inputs -> raw z-depth [N, W, H]: launches the CUDA kernel
+    for CUDA tensors (or raises), runs the plain version for CPU
+    tensors."""
+    _check(inp, noise=False)
+    if not inp.origins.is_cuda:
+        return render_depth_packed_plain(inp)
+    cfg = inp.cfg
+    n, p = inp.prims.shape[0], inp.prims.shape[1]
+    W, H = cfg.width, cfg.height
+    lib = DEPTH_KERNEL.lib()
+    if lib.render_depth_smem_bytes(p) == 0:
+        raise ValueError(f"{p} records exceed one block's shared memory")
+    out = torch.empty((n, W, H), dtype=torch.float32,
+                      device=inp.origins.device)
+    tan_h, tan_v = _tans(cfg)
+    args = [x.contiguous() for x in (inp.origins, inp.rots, inp.prims,
+                                      inp.live)]
+    DEPTH_KERNEL.call("render_depth_launch", *[x.data_ptr() for x in args],
+                      out.data_ptr(), n, p, *inp.counts, W, H, tan_h, tan_v,
+                      int(inp.ground),
+                      torch.cuda.current_stream(out.device).cuda_stream)
+    DEPTH_KERNEL.launches["render_depth"] += 1
+    return out
+
+
 def render_process_packed(inp: RenderInputs) -> torch.Tensor:
     """Kernel inputs -> post-processed images [N, 1, W, H]: launches the
     CUDA kernel for CUDA tensors (or raises), runs the plain version for
     CPU tensors."""
-    _check(inp)
+    _check(inp, noise=True)
+    if inp.cfg.height > LANES - 2:
+        raise ValueError(f"fused render+process requires H <= {LANES - 2}")
     if not inp.origins.is_cuda:
         return render_process_packed_plain(inp)
     cfg = inp.cfg
@@ -451,7 +499,9 @@ def _cast_record(kind: int, rec: torch.Tensor, ray, t_eu: torch.Tensor):
     return torch.minimum(t_eu, where(hit & (valid > 0.0), t_p, big))
 
 
-def _render_chunk(inp: RenderInputs, sl: slice) -> torch.Tensor:
+def _cast_chunk(inp: RenderInputs, sl: slice) -> torch.Tensor:
+    """z-depth [n, W, H] of the envs ``sl``: the ray set-up, the ground
+    and the record chain, the loop both kernels share."""
     cfg = inp.cfg
     W, H = cfg.width, cfg.height
     dev = inp.origins.device
@@ -485,19 +535,51 @@ def _render_chunk(inp: RenderInputs, sl: slice) -> torch.Tensor:
                 t_g = _cast_record(slot + 1, prims[:, p + g0 + k], ray, t_g)
             t = torch.where((g0 < live[:, slot])[:, None], t_g, t)
         p += seg_n
-    depth = (t * inv).reshape(-1, W, H)
-    return _postprocess(depth, inp.seeds[sl], inp.taps[sl],
-                        float(cfg.depth_clamp))
+    return (t * inv).reshape(-1, W, H)
+
+
+def _by_chunks(fn, inp: RenderInputs, chunk: int) -> torch.Tensor:
+    """``fn(inp, envs)`` over chunks of ``chunk`` envs (the envs are
+    independent; chunks bound the plain versions' memory)."""
+    n = inp.origins.shape[0]
+    return torch.cat([fn(inp, slice(i, min(i + chunk, n)))
+                      for i in range(0, n, chunk)], dim=0)
+
+
+def render_depth_packed_plain(inp: RenderInputs,
+                              chunk: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/render_depth.cu`` -> [N, W, H]."""
+    return _by_chunks(_cast_chunk, inp, chunk)
 
 
 def render_process_packed_plain(inp: RenderInputs,
                                 chunk: int = 512) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/render_process.cu`` (chunks of
-    ``chunk`` envs bound its memory; the envs are independent)."""
-    n = inp.origins.shape[0]
-    outs = [_render_chunk(inp, slice(i, min(i + chunk, n)))
-            for i in range(0, n, chunk)]
-    return torch.cat(outs, dim=0)[:, None]
+    """Plain PyTorch version of ``csrc/render_process.cu`` -> [N, 1, W,
+    H]: the cast, then the post-processing."""
+    clamp = float(inp.cfg.depth_clamp)
+    return _by_chunks(lambda i, sl: _postprocess(
+        _cast_chunk(i, sl), i.seeds[sl], i.taps[sl], clamp),
+        inp, chunk)[:, None]
+
+
+def render_depth_fused(cfg: dr.CameraCfg, root_states: torch.Tensor,
+                       scene: dr.SceneForRender,
+                       cull_far_z: Optional[float] = None) -> torch.Tensor:
+    """Raw z-depth [N, W, H] (counterpart of ``render_depth_pallas``):
+    the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+    ``cull_far_z`` skips records that cannot change the image clipped at
+    that depth (raw depths beyond it may turn from hit to miss); tables
+    of 16 records or fewer are never culled."""
+    return render_depth_packed(prepare(cfg, root_states, scene, None,
+                                       cull_far_z))
+
+
+def render_depth_plain(cfg: dr.CameraCfg, root_states: torch.Tensor,
+                       scene: dr.SceneForRender,
+                       cull_far_z: Optional[float] = None) -> torch.Tensor:
+    """``render_depth_fused`` through the plain version on any device."""
+    return render_depth_packed_plain(prepare(cfg, root_states, scene, None,
+                                             cull_far_z))
 
 
 def render_process(cfg: dr.CameraCfg, root_states: torch.Tensor,

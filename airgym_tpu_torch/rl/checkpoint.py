@@ -3,8 +3,10 @@
 * Native format: a torch file of plain tensors and numbers (``save`` /
   ``load`` / ``restore``): the model state dict, the running stats (a
   dict {'image', 'observation'} of them for camera tasks), the Adam
-  moments and count, lr, epoch and frame. The env state is not saved; a
-  resumed run re-initializes its envs, as the reference does.
+  moments and count, lr, epoch and frame, and the per-actor success
+  trackers of the last finished episodes (``last_ep_success``,
+  ``last_ep_env_success``) where the task has them. The env state is not
+  saved; a resumed run re-initializes its envs, as the reference does.
 * ``export_pth`` / ``import_pth``: the reference .pth layout
   (``model`` = actor_mlp.layers.N.*, mu.*, value_head.*, logstd, the CNN's
   actor_cnn.features.{0,3,6} convs, .features.{2,5,8} batch norms and
@@ -45,6 +47,11 @@ def _rms_from_payload(d, device):
                             for k in ("mean", "var", "count")))
 
 
+# success trackers [N] of the TrainState, for tasks with has_success /
+# has_env_success
+_TRACKERS = ("last_ep_success", "last_ep_env_success")
+
+
 def payload(ts) -> Dict[str, Any]:
     """TrainState -> the native checkpoint dict (CPU tensors)."""
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
@@ -59,6 +66,9 @@ def payload(ts) -> Dict[str, Any]:
         "frame": int(ts.frame),
         "adv_ms": (None if ts.adv_ms is None
                    else [x.detach().cpu() for x in ts.adv_ms]),
+        **{k: (None if getattr(ts, k) is None
+               else getattr(ts, k).detach().cpu().clone())
+           for k in _TRACKERS},
     }
 
 
@@ -86,8 +96,16 @@ def restore(ts, ck: Dict[str, Any]):
     adv_ms = ts.adv_ms
     if ck.get("adv_ms") is not None and adv_ms is not None:
         adv_ms = type(adv_ms)(*(x.to(dev) for x in ck["adv_ms"]))
+    # a tracker the task has and the checkpoint lacks starts at zero; one
+    # the task does not have is dropped (the JAX runner's restore)
+    trackers = {}
+    for k in _TRACKERS:
+        have, saved = getattr(ts, k, None), ck.get(k)
+        if have is not None:
+            trackers[k] = (torch.zeros_like(have) if saved is None
+                           else saved.to(have).reshape(have.shape))
     return dataclasses.replace(
-        ts, adam=adam, adv_ms=adv_ms,
+        ts, adam=adam, adv_ms=adv_ms, **trackers,
         obs_rms=_rms_from_payload(ck.get("obs_rms"), dev) or ts.obs_rms,
         value_rms=_rms_from_payload(ck.get("value_rms"), dev) or ts.value_rms,
         lr=torch.tensor(ck.get("lr", float(ts.lr)), dtype=torch.float32,
@@ -231,15 +249,21 @@ def _jax_rms(rms) -> Optional[Dict[str, torch.Tensor]]:
 
 
 def from_jax(params_np, obs_rms_np, value_rms_np, adam_np=None,
-             lr: Optional[float] = None) -> Dict[str, Any]:
+             lr: Optional[float] = None, last_ep_success=None,
+             last_ep_env_success=None) -> Dict[str, Any]:
     """A JAX TrainState's pieces (numpy pytrees: the flax params, the
     RunningMeanStd tuples, and optax's ScaleByAdamState with ``count``,
-    ``mu``, ``nu``) -> a native checkpoint dict for ``restore``."""
+    ``mu``, ``nu``; the success trackers as numpy arrays, where the JAX
+    TrainState has them) -> a native checkpoint dict for ``restore``."""
+    tracker = lambda a: (None if a is None else torch.from_numpy(
+        np.array(a, dtype=np.float32)))
     ck: Dict[str, Any] = {
         "model": _jax_params_to_ref(params_np),
         "obs_rms": _jax_rms(obs_rms_np),
         "value_rms": _jax_rms(value_rms_np),
         "epoch": 0, "frame": 0,
+        "last_ep_success": tracker(last_ep_success),
+        "last_ep_env_success": tracker(last_ep_env_success),
     }
     if adam_np is not None:
         # the batch-norm statistics are buffers here, not parameters

@@ -105,6 +105,11 @@ class TrainState:
     # with has_success: Balloon's hit, Planning's goal); None otherwise
     last_ep_success: Optional[torch.Tensor] = None
     adv_ms: Optional[mstats.MovingStats] = None
+    # [N] 1.0 iff the last finished env-level episode ended by env success
+    # (tasks with has_env_success: MAPlanning, where any robot's goal
+    # reach wins and any robot's event resets the whole env); None
+    # otherwise
+    last_ep_env_success: Optional[torch.Tensor] = None
 
 
 class Rollout(NamedTuple):
@@ -166,7 +171,9 @@ class PPO:
         self.task = task
         self.cfg = cfg
         self.device = task.device
-        self.num_envs = task.cfg.num_envs
+        # actors: the envs, or envs x robots for a task that flattens its
+        # robot axis (MAPlanning's flat_n)
+        self.num_envs = getattr(task, "flat_n", task.cfg.num_envs)
         self.num_actions = task.cfg.num_actions
         self.network_kw = dict(network_kw or {})
         self.batch_size = self.num_envs * cfg.horizon
@@ -245,7 +252,9 @@ class PPO:
             generator=gen, seed_generator=seed_gen,
             last_ep_success=(zeros() if self.task.has_success else None),
             adv_ms=(mstats.MovingStats.create((), dev)
-                    if self.cfg.normalize_rms_advantage else None))
+                    if self.cfg.normalize_rms_advantage else None),
+            last_ep_env_success=(zeros() if getattr(
+                self.task, "has_env_success", False) else None))
 
     # ---------------------------------------------------------------- rollout
 
@@ -282,6 +291,7 @@ class PPO:
         ep_ret, ep_len = ts.ep_return, ts.ep_length
         last_ret, last_len = ts.last_ep_return, ts.last_ep_length
         last_suc = ts.last_ep_success
+        last_env_suc = ts.last_ep_env_success
         store = lambda img: img.to(torch.bfloat16)
 
         feat = frames = images = frame_idx = None
@@ -331,6 +341,17 @@ class PPO:
                         f"{type(self.task).__name__} sets has_success but "
                         f"its step info has no 'success' entry")
                 last_suc = torch.where(d, success.to(ep_ret.dtype), last_suc)
+            env_success = info.pop("env_success", None)
+            env_done = info.pop("env_done", None)
+            if last_env_suc is not None:
+                if env_success is None or env_done is None:
+                    raise ValueError(
+                        f"{type(self.task).__name__} sets has_env_success "
+                        f"but its step info lacks 'env_success' / "
+                        f"'env_done'")
+                # on each whole-env reset: did any robot reach the goal
+                last_env_suc = torch.where(
+                    env_done, env_success.to(ep_ret.dtype), last_env_suc)
             for k, v in info.items():
                 info_sums[k] = info_sums.get(k, 0.0) + torch.mean(
                     v.to(torch.float32))
@@ -362,7 +383,8 @@ class PPO:
         ts = dataclasses.replace(
             ts, env_state=env_state, obs=obs, ep_return=ep_ret,
             ep_length=ep_len, last_ep_return=last_ret,
-            last_ep_length=last_len, last_ep_success=last_suc)
+            last_ep_length=last_len, last_ep_success=last_suc,
+            last_ep_env_success=last_env_suc)
         infos = {k: v / H for k, v in info_sums.items()}
         return ts, traj, last_value[:, 0], infos
 
@@ -617,6 +639,9 @@ class PPO:
         if ts.last_ep_success is not None:
             # share of the last finished episodes that ended in success
             metrics["success_rate"] = torch.mean(ts.last_ep_success)
+        if ts.last_ep_env_success is not None:
+            # the env-level rate: per-robot success is capped near 1 / R
+            metrics["env_success_rate"] = torch.mean(ts.last_ep_env_success)
         var_ret = torch.var(returns, unbiased=False)
         metrics["explained_variance"] = 1.0 - torch.var(
             returns - values, unbiased=False) / (var_ret + 1e-8)

@@ -6,8 +6,10 @@ the task and the trainer, and runs the epochs: per logged epoch it prints
 the fps line and records the host-side metrics, and it writes native and
 .pth checkpoints at ``save_frequency``, on a new best reward after
 ``save_best_after``, and at the end. A task with a success notion
-(Balloon, Planning) also keeps a ``<name>_best_success`` checkpoint of
-the best logged success rate.
+(Balloon, Planning, Avoid, MAPlanning) also keeps a
+``<name>_best_success`` checkpoint of the best logged success rate: the
+env-level rate where the trainer reports one (MAPlanning, whose
+per-robot rate is capped near 1 / R), else the per-actor rate.
 
 The trainer is chosen as in the JAX runner: the fused trainer of the
 task when the YAML asks for it (``use_fused_rollout``) and the config is
@@ -15,8 +17,9 @@ one its kernels cover (rate mode, a multiple of 1024 envs, the
 [64,128,64] elu shared-trunk fixed-sigma net), otherwise the plain
 ``PPO`` (camera tasks, Balloon's shipped 64 envs, other nets).
 
-Play / eval, the metrics writer and multi-GPU runs are ROADMAP.md queue A
-items 9b and 15.
+Play / eval, the metrics writer, multi-GPU runs and the robot-count
+curriculum's warm start (``transfer_checkpoint``) are ROADMAP.md queue A
+items 9b, 15 and 13b.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from airgym_tpu_torch.rl.fused_ppo import (FusedBalloonPPO, FusedHoveringPPO,
 LOGGED = ("mean_reward", "loss", "kl", "lr", "a_loss", "c_loss", "b_loss",
           "entropy", "clip_frac", "mean_ep_length", "reward_raw_per_step",
           "explained_variance")
+SUCCESS = ("success_rate", "env_success_rate")
 
 FUSED_TRAINERS = {"hovering": FusedHoveringPPO, "balloon": FusedBalloonPPO,
                   "tracking": FusedTrackingPPO}
@@ -156,6 +160,11 @@ class Runner:
         ts = trainer.init(seed)
         if args.get("checkpoint"):
             ts = ckpt.restore(ts, ckpt.load(args["checkpoint"]))
+        elif args.get("transfer_checkpoint"):
+            raise NotImplementedError(
+                "warm starts across observation widths (the robot-count "
+                "curriculum, checkpoint.transfer_obs_width) are not ported "
+                "yet: ROADMAP.md queue A item 13b")
         log_every = max(1, int(args.get("log_every")
                                or max(1, cfg.max_epochs // 50)))
         cuda = trainer.device.type == "cuda"
@@ -174,8 +183,7 @@ class Runner:
             if cuda:
                 torch.cuda.synchronize(trainer.device)
             now = time.time()
-            row = {k: float(m[k]) for k in LOGGED + ("success_rate",)
-                   if k in m}
+            row = {k: float(m[k]) for k in LOGGED + SUCCESS if k in m}
             row.update(epoch=epoch, frames=ts.frame,
                        seconds=now - t_last,
                        fps=frames_since / max(now - t_last, 1e-9))
@@ -186,15 +194,17 @@ class Runner:
                   f"mean_reward: {row['mean_reward']:.2f} "
                   f"loss: {row['loss']:.4f} kl: {row['kl']:.5f} "
                   f"lr: {row['lr']:.2e}"
-                  + (f" success_rate: {row['success_rate']:.3f}"
-                     if "success_rate" in row else ""), flush=True)
+                  + "".join(f" {k}: {row[k]:.3f}" for k in SUCCESS
+                            if k in row), flush=True)
             if epoch >= cfg.save_best_after and \
                     row["mean_reward"] > best_reward:
                 best_reward = row["mean_reward"]
                 self.save(ts, os.path.join(ck_dir, name), best_reward)
+            gate = ("env_success_rate" if "env_success_rate" in row
+                    else "success_rate")
             if epoch >= cfg.save_best_after and \
-                    row.get("success_rate", 0.0) > best_success:
-                best_success = row["success_rate"]
+                    row.get(gate, 0.0) > best_success:
+                best_success = row[gate]
                 self.save(ts, os.path.join(ck_dir, f"{name}_best_success"),
                           row["mean_reward"])
             if cfg.save_frequency and epoch % cfg.save_frequency == 0:

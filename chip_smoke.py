@@ -37,22 +37,40 @@ Phases, each of which exits non-zero on failure:
      goal ball and the ground, culled at 4.5 m, after some env steps), on
      a one-box scene like Avoid's (too small to cull: the unguarded
      chain) and on a 256-env scene of all four record kinds;
- 13. train Planning (configs/ppo_planning.yaml, 4096 envs) for 3 epochs
+ 13. train Planning (configs/ppo_planning.yaml, 4096 envs) for 2 epochs
      through the runner with the render counter set to 0 before and read
      after (1 launch at init, 6 per epoch), save and reload the
      checkpoint, and profile one epoch (render, convs, the rest);
- 14. time the render kernel and its plain version, and print one JSON
-     line listing every ported kernel.
+ 14. time the render kernel and its plain version;
+ 15. hold the raw depth kernel against its plain version: at MAPlanning's
+     full shape (4096 envs x 4 robots = 16,384 cameras of 212 x 120,
+     after 30 env steps), at DepthGen's 1024-env scene of 168 records
+     (unguarded) and on a 256-env mixed scene culled at 4.5 m;
+ 16. train MAPlanning (configs/ppo_maplanning.yaml at its full width,
+     16,384 actors) for 2 epochs through the runner, counters checked (1
+     raw depth launch at init, 6 per epoch, nothing else), save and reload,
+     print the peak device memory, profile one epoch (raw depth, convs,
+     the rest);
+ 17. train Avoid (configs/ppo_avoid.yaml, 4096 envs) for 2 epochs (the
+     render + process kernel: 1 launch at init, 16 per epoch), save and
+     reload, profile one epoch;
+ 18. generate DepthGen's dataset at 1024 envs, 2048 frames (2 raw depth
+     launches) and check every frame;
+ 19. time the raw depth kernel and its plain version at the MAPlanning
+     and DepthGen shapes, and print one JSON line listing every ported
+     kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # tolerances of the kernel-vs-plain comparisons: float32 with other
@@ -81,10 +99,30 @@ ENV_STEP_OPS = 580
 # root as one; the hash's integer work not counted): per pixel the ray and
 # the ground ~37 and the post-processing ~80, per pixel and record a
 # cylinder ~58, a sphere ~20, a box ~45, an annulus ~90
-RENDER_PIXEL_OPS = 37 + 80
+RAY_OPS = 37
+RENDER_PIXEL_OPS = RAY_OPS + 80
 RENDER_RECORD_OPS = (58, 20, 45, 90)
 RENDER_ATOL = 1e-5              # the JAX suite's (tests/test_fused_render.py)
-PLANNING_EPOCHS = 3
+PLANNING_EPOCHS = 2
+# profiler kernel names of the CNN's cuDNN convolutions and their layout
+# copies
+CONV_WORDS = ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
+              "winograd", "nchw", "nhwc", "im2col")
+# the raw depth kernel: |err| where both hit; a miss is BIG * inv_norm
+# (>= 5e8), so a pixel is a hit below DEPTH_HIT
+DEPTH_ATOL = 1e-5
+DEPTH_HIT = 1e8
+MAPLANNING_EPOCHS = 2           # at the YAML's full width: 16,384 actors
+AVOID_EPOCHS = 2
+DEPTHGEN_ENVS, DEPTHGEN_FRAMES = 1024, 2048
+
+
+T0 = time.time()
+
+
+def phase(n):
+    """Print the script's elapsed seconds as phase ``n`` starts."""
+    print(f"[phase {n}] starts at {time.time() - T0:.1f} s", flush=True)
 
 
 def fail(msg):
@@ -287,8 +325,9 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
               f"{row['mean_reward']:.4f} loss {row['loss']:.5f} kl "
               f"{row['kl']:.3e} lr {row['lr']:.3e} epoch_s "
               f"{row['seconds']:.3f} fps {row['fps']:.0f}"
-              + (f" success_rate {row['success_rate']:.4f}"
-                 if "success_rate" in row else ""), flush=True)
+              + "".join(f" {k} {row[k]:.4f}" for k in ("success_rate",
+                                                       "env_success_rate")
+                        if k in row), flush=True)
         for key in ("mean_reward", "loss", "kl", "lr", "seconds"):
             check(math.isfinite(row[key]), f"{task} epoch {row['epoch']}: "
                                            f"{key} not finite")
@@ -323,39 +362,31 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
 def profile_epoch(trainer, ts, tag, groups=None):
     """One warm epoch, then one under torch.profiler: wall, device busy,
     the top kernels by device time. The profiler slows the host, so the
-    busy time is also set against the warm epoch's own wall."""
+    busy time is also set against the warm epoch's own wall. Only device
+    activity is traced: a vision epoch's millions of host op events took
+    minutes to read back and are not used."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ts_prof = trainer.train_epoch(ts)[0]               # warm
     torch.cuda.synchronize()
     warm_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_epoch(ts_prof)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # the device's own events (kernels, copies, memsets) only: an aten
-    # op's self device time repeats the kernels it launched, and summing
-    # both would count that time twice
+    # the device's own events (kernels, copies, memsets) only: a runtime
+    # call's device time repeats the kernel it launched, and summing both
+    # would count that time twice
     cpu = torch.autograd.DeviceType.CPU
-    rows, op_rows = [], []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            on_device = getattr(e, "device_type", cpu) != cpu
-            (rows if on_device else op_rows).append(
-                (us / 1e3, e.count, e.key))
-    if not rows:
-        # this torch tags no event with a device: the aten ops' self device
-        # time is all there is, and it counts some kernels twice
-        print(f"[profile {tag}] WARNING: no device-typed profiler events; "
-              f"the busy time below sums aten ops' self device time and may "
-              f"count a kernel twice", flush=True)
-        rows, op_rows = op_rows, []
-    rows.sort(reverse=True)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type != cpu), reverse=True)
+    check(rows, f"profile {tag}: the profiler recorded no device events")
+    print(f"[profile {tag}] closing and reading the profile took "
+          f"{time.perf_counter() - t0 - wall_ms / 1e3:.1f} s", flush=True)
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile {tag}] one epoch: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) under the "
@@ -434,6 +465,38 @@ def render_vs_plain(rc, inp, tag):
     return float(err.max()), live
 
 
+def mixed_scene(u, n, dev):
+    """A scene of all four record kinds in front of a camera at (0, 0, 1):
+    20 cylinders (some invalid), 3 spheres, 3 boxes, 3 annuli, the ground;
+    ``u(*shape)`` draws uniforms."""
+    from airgym_tpu_torch.physics import scene as sc
+    from airgym_tpu_torch.render import depth as dr
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+    ones = lambda k: torch.ones((n, k), dtype=torch.bool, device=dev)
+    cyl = sc.Cylinders(
+        center=torch.stack([9 * u(n, 20) - 3, 4 * u(n, 20) - 2,
+                            torch.full((n, 20), 1.2, device=dev)], -1),
+        axis=unit(torch.cat([0.6 * u(n, 20, 2) - 0.3,
+                             torch.ones((n, 20, 1), device=dev)], -1)),
+        half_len=0.8 + 0.8 * u(n, 20), radius=0.05 + 0.35 * u(n, 20),
+        valid=u(n, 20) > 0.1)
+    sph = sc.Spheres(center=torch.stack([0.5 + 3.5 * u(n, 3), 2 * u(n, 3) - 1,
+                                         0.6 + 0.8 * u(n, 3)], -1),
+                     radius=0.1 + 0.3 * u(n, 3), valid=ones(3))
+    boxes = sc.Boxes(center=torch.stack([1 + 3 * u(n, 3), 3 * u(n, 3) - 1.5,
+                                         0.3 + 1.2 * u(n, 3)], -1),
+                     yaw=6 * u(n, 3) - 3, half_extents=0.1 + 0.4 * u(n, 3, 3),
+                     valid=ones(3))
+    ann = sc.Annuli(center=torch.stack([1.5 + 2 * u(n, 3), 1.6 * u(n, 3) - 0.8,
+                                        0.8 + 0.4 * u(n, 3)], -1),
+                    normal=unit(torch.cat([torch.ones((n, 3, 1), device=dev),
+                                           0.8 * u(n, 3, 2) - 0.4], -1)),
+                    r_in=0.2 + 0.2 * u(n, 3), r_out=0.5 + 0.3 * u(n, 3),
+                    half_thick=0.02 + 0.08 * u(n, 3), valid=ones(3))
+    return dr.SceneForRender(cylinders=cyl, spheres=sph, boxes=boxes,
+                             annuli=ann, ground=True)
+
+
 def render_checks(envs, rc, dev):
     """Phase 12: the render kernel at Planning's full shape (guarded),
     on a box scene (unguarded) and on a scene of all four kinds.
@@ -475,34 +538,93 @@ def render_checks(envs, rc, dev):
     n = 256
     mix_root = root[:n].clone()
     mix_root[:, 0:3] = torch.tensor([0.0, 0.0, 1.0], device=dev)
-    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
-    cyl = sc.Cylinders(
-        center=torch.stack([9 * u(n, 20) - 3, 4 * u(n, 20) - 2,
-                            torch.full((n, 20), 1.2, device=dev)], -1),
-        axis=unit(torch.cat([0.6 * u(n, 20, 2) - 0.3,
-                             torch.ones((n, 20, 1), device=dev)], -1)),
-        half_len=0.8 + 0.8 * u(n, 20), radius=0.05 + 0.35 * u(n, 20),
-        valid=u(n, 20) > 0.1)
-    sph = sc.Spheres(center=torch.stack([0.5 + 3.5 * u(n, 3), 2 * u(n, 3) - 1,
-                                         0.6 + 0.8 * u(n, 3)], -1),
-                     radius=0.1 + 0.3 * u(n, 3),
-                     valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
-    boxes = sc.Boxes(center=torch.stack([1 + 3 * u(n, 3), 3 * u(n, 3) - 1.5,
-                                         0.3 + 1.2 * u(n, 3)], -1),
-                     yaw=6 * u(n, 3) - 3, half_extents=0.1 + 0.4 * u(n, 3, 3),
-                     valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
-    ann = sc.Annuli(center=torch.stack([1.5 + 2 * u(n, 3), 1.6 * u(n, 3) - 0.8,
-                                        0.8 + 0.4 * u(n, 3)], -1),
-                    normal=unit(torch.cat([torch.ones((n, 3, 1), device=dev),
-                                           0.8 * u(n, 3, 2) - 0.4], -1)),
-                    r_in=0.2 + 0.2 * u(n, 3), r_out=0.5 + 0.3 * u(n, 3),
-                    half_thick=0.02 + 0.08 * u(n, 3),
-                    valid=torch.ones((n, 3), dtype=torch.bool, device=dev))
-    inp_m = rc.prepare(task.cam_cfg, mix_root, dr.SceneForRender(
-        cylinders=cyl, spheres=sph, boxes=boxes, annuli=ann, ground=True),
-        77, 4.5)
+    inp_m = rc.prepare(task.cam_cfg, mix_root, mixed_scene(u, n, dev), 77,
+                       4.5)
     err_m, _ = render_vs_plain(rc, inp_m, "mixed 256 guarded")
     return max(err_p, err_b, err_m), (inp, live)
+
+
+def depth_bound(inp, live_mean):
+    """(bound ms, what bounds it) of one raw depth render: the ray and the
+    ground per pixel plus the records cast (their mean per env), the
+    inputs read once and the [N, W, H] image written once."""
+    n = inp.origins.shape[0]
+    pix = n * inp.cfg.width * inp.cfg.height
+    ops = pix * (RAY_OPS + sum(c * k for c, k in zip(live_mean,
+                                                     RENDER_RECORD_OPS)))
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        inp.origins, inp.rots, inp.prims, inp.live)) + 4 * pix
+    return bound_ms(ops, nbytes)
+
+
+def depth_vs_plain(rc, inp, tag):
+    """The raw depth kernel vs its plain version on the same inputs:
+    |err| <= DEPTH_ATOL where both hit, at most max(1, N / 1000) pixels
+    where one side hits and the other misses. Returns (max error where
+    both hit, live records per env)."""
+    out_k = rc.render_depth_packed(inp)
+    out_p = rc.render_depth_packed_plain(inp)
+    torch.cuda.synchronize()
+    n = inp.origins.shape[0]
+    check(tuple(out_k.shape) == (n, inp.cfg.width, inp.cfg.height),
+          f"depth {tag}: shape {tuple(out_k.shape)}")
+    check(bool(torch.isfinite(out_k).all()), f"depth {tag}: not finite")
+    hit_k, hit_p = out_k < DEPTH_HIT, out_p < DEPTH_HIT
+    flips = int((hit_k != hit_p).sum())
+    both = hit_k & hit_p
+    err = float((out_k - out_p).abs()[both].max()) if bool(both.any()) \
+        else 0.0
+    n_diff = int((out_k != out_p).sum())
+    live = inp.live.to(torch.float32).mean(0).tolist()
+    print(f"[depth {tag}] N={n} {inp.cfg.width}x{inp.cfg.height} records "
+          f"{inp.prims.shape[1]} live per env {[round(x, 3) for x in live]}: "
+          f"max|err| where both hit {err:.3e}, hit / miss flips {flips}, "
+          f"pixels not bit-equal {n_diff}, hit share "
+          f"{float(both.float().mean()):.3f}", flush=True)
+    check(err <= DEPTH_ATOL, f"depth {tag}: max|err| {err:.3e} > "
+                             f"{DEPTH_ATOL:g}")
+    check(flips <= max(1, n // 1000),
+          f"depth {tag}: {flips} hit / miss flips > {max(1, n // 1000)}")
+    check(float(both.float().mean()) > 0.05, f"depth {tag}: almost no hits")
+    return err, live
+
+
+def depth_checks(envs, rc, dev):
+    """Phase 15: the raw depth kernel at MAPlanning's full shape (4096
+    envs x 4 robots, after 30 env steps), at DepthGen's 1024-env scene of
+    168 records (unguarded) and on a 256-env mixed scene culled at 4.5 m.
+    Returns (max error, {shape: (inputs, live records per env)})."""
+    ma = envs.make_task("maplanning", num_envs=4096, device=dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    st = ma.initial_state(g)
+    for _ in range(30):
+        a = torch.rand((ma.flat_n, 4), generator=g, device=dev) * 1.2 - 0.6
+        a[:, 3] = -0.69 + 0.1 * a[:, 3]
+        st, _ = ma.step(st, a, g, render=False)
+    root = st.core.root
+    inp_ma = rc.prepare(ma.cam_cfg, root, ma.scene(root, st.goal))
+    check(inp_ma.prims.shape == (16384, 8, 12) and inp_ma.counts
+          == (0, 5, 0, 0), f"maplanning scene packs as {inp_ma.counts}")
+    err_ma, live_ma = depth_vs_plain(rc, inp_ma, "maplanning 16384")
+
+    dg = envs.make_task("depthgen", num_envs=DEPTHGEN_ENVS, device=dev)
+    dst = dg.initial_state(torch.Generator(device=dev).manual_seed(32))
+    inp_dg = rc.prepare(dg.cam_cfg, dst.core.root, dg.scene(dst))
+    check(inp_dg.prims.shape[1] == 168 and inp_dg.counts == (75, 72, 15, 3),
+          f"depthgen scene packs as {inp_dg.counts}")
+    err_dg, live_dg = depth_vs_plain(rc, inp_dg, "depthgen 1024 unguarded")
+
+    rng = torch.Generator(device=dev).manual_seed(33)
+    u = lambda *shape: torch.rand(shape, generator=rng, device=dev)
+    n = 256
+    mix_root = root[:n].clone()
+    mix_root[:, 0:3] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    inp_m = rc.prepare(ma.cam_cfg, mix_root, mixed_scene(u, n, dev), None,
+                       4.5)
+    check(int(inp_m.live[:, 0].min()) < 20, "the mixed scene must be culled")
+    err_m, _ = depth_vs_plain(rc, inp_m, "mixed 256 guarded")
+    return max(err_ma, err_dg, err_m), {"maplanning": (inp_ma, live_ma),
+                                        "depthgen": (inp_dg, live_dg)}
 
 
 def main():
@@ -536,7 +658,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
-    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL]
+    phase(2)
+    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL, rc.DEPTH_KERNEL]
     secs = build.build_all(kernels)
     print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
     for k in kernels:
@@ -547,6 +670,9 @@ def main():
     print(f"[build] render_process: dynamic shared memory "
           f"{rc.KERNEL.lib().render_process_smem_bytes(48, 212, 120)} bytes "
           f"per block at 212 x 120 with 48 records", flush=True)
+    print(f"[build] render_depth: dynamic shared memory "
+          f"{rc.DEPTH_KERNEL.lib().render_depth_smem_bytes(168)} bytes per "
+          f"block with 168 records", flush=True)
 
     cfg_dir = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
                            "..", "configs")
@@ -568,6 +694,7 @@ def main():
     ts = trainer.init(1234)
 
     # ---- 3. rollout kernel vs plain ---------------------------------------
+    phase(3)
     pack = fr.pack_policy(ts.model, ts.obs_rms)
     packed = fh.pack_state(ts.env_state.core)
     packed[19, :256] = 2390.0            # exercise the timeout path too
@@ -580,6 +707,7 @@ def main():
             rollout_err["hovering"] = err
 
     # ---- 4. update kernel vs plain ----------------------------------------
+    phase(4)
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     B = trainer.batch_size
@@ -589,6 +717,7 @@ def main():
     update_err = {"obs18": update_vs_plain(fu, upd_args, upd_kw, "obs18")}
 
     # ---- 5. train through the runner --------------------------------------
+    phase(5)
     reset_counts(kernels)
     _, ts_run, info = train_and_reload(runner_mod, ckpt, yaml_cfg,
                                        "hovering", EPOCHS, run_root, g,
@@ -606,6 +735,7 @@ def main():
           f"{EPOCHS * per_epoch_update} ({per_epoch_update} per epoch)")
 
     # ---- 6. timing ----------------------------------------------------------
+    phase(6)
     times = {}
     n, steps = packed.shape[1], H
     times["hovering"] = (
@@ -625,9 +755,11 @@ def main():
               f"bound {b_ms:.4f} by {b_by})", flush=True)
 
     # ---- 7. where one epoch's time goes (torch.profiler) --------------------
+    phase(7)
     profile_epoch(trainer, ts_run, "hovering")
 
     # ---- 8. Balloon / Tracking rollouts, the update at 48 features ---------
+    phase(8)
     task_inputs = {}
     for name in ("balloon", "tracking"):
         t_cfg = ppo_config_from_params(load_cfg(name)["params"])
@@ -679,6 +811,7 @@ def main():
                                                   "obs48")
 
     # ---- 9. env-only Hovering kernel ------------------------------------------
+    phase(9)
     act = torch.tensor([0.05, -0.05, 0.02, 0.4], device=dev)
     e_task = envs.make_task("hovering", ctl_mode="rate", num_envs=n_envs,
                             device=dev)
@@ -708,6 +841,7 @@ def main():
     env_err, rew_err = max(env_err, big_errs[0]), max(rew_err, big_errs[1])
 
     # ---- 10. Balloon and Tracking training ------------------------------------
+    phase(10)
     paths = {"balloon": ("balloon", "obs18", 640),
              "tracking": ("tracking", "obs48", 480)}
     for name, (rkey, ukey, per_epoch) in paths.items():
@@ -735,6 +869,7 @@ def main():
         profile_epoch(t_trainer, t_ts, name)
 
     # ---- 11. timing of the new kernels, the kernels line ------------------------
+    phase(11)
     for name, (p, t_pack, steps_t) in task_inputs.items():
         times[name] = (
             cuda_time_ms(lambda: fr.rollout_fused_policy(
@@ -760,9 +895,11 @@ def main():
               f"bound {b_ms:.4f} by {b_by})", flush=True)
 
     # ---- 12. the render + post-process kernel vs its plain version ---------
+    phase(12)
     render_err, render_case = render_checks(envs, rc, dev)
 
     # ---- 13. Planning training -----------------------------------------------
+    phase(13)
     p_yaml = load_cfg("planning")
     reset_counts(kernels)
     p_trainer, p_ts, p_info = train_and_reload(
@@ -788,11 +925,10 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     profile_epoch(p_trainer, p_ts, "planning",
                   groups={"render": ("render_process",),
-                          "convs": ("conv", "cudnn", "implicit", "wgrad",
-                                    "dgrad", "fprop", "winograd", "nchw",
-                                    "nhwc", "im2col")})
+                          "convs": CONV_WORDS})
 
     # ---- 14. render kernel timing ---------------------------------------------
+    phase(14)
     inp, live_mean = render_case
     times["render_process"] = (
         cuda_time_ms(lambda: rc.render_process_packed(inp)),
@@ -812,6 +948,126 @@ def main():
     print(f"[time] render_process unculled: kernel {u_ms:.3f} ms (bound "
           f"{ub_ms:.4f} by {ub_by}; records per env {list(inp.counts)})",
           flush=True)
+    del p_trainer, p_ts, full
+    torch.cuda.empty_cache()
+
+    # ---- 15. the raw depth kernel vs its plain version ---------------------
+    phase(15)
+    depth_err, depth_cases = depth_checks(envs, rc, dev)
+
+    # ---- 16. MAPlanning training at full width -----------------------------
+    phase(16)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    m_trainer, m_ts, m_info = train_and_reload(
+        runner_mod, ckpt, load_cfg("maplanning"), "maplanning",
+        MAPLANNING_EPOCHS, run_root, g, kernels)
+    got = m_info["launches"]
+    launches["render_depth"] = got["render_depth"].get("render_depth", 0)
+    per_epoch = m_trainer.cfg.horizon // m_trainer.cam_every
+    want = 1 + MAPLANNING_EPOCHS * per_epoch
+    print(f"[train maplanning] {MAPLANNING_EPOCHS} epochs of "
+          f"{m_trainer.num_envs} actors ({m_trainer.task.cfg.num_envs} envs "
+          f"x {m_trainer.task.cfg.num_robots} robots), "
+          f"{m_trainer.num_minibatches * m_trainer.cfg.mini_epochs} Adam "
+          f"steps per epoch, in {m_info['train_s']:.2f} s; launches {got}",
+          flush=True)
+    check(m_trainer.num_envs == 16384 and m_trainer.frame_dedup,
+          "maplanning must train 16,384 actors with frame dedup")
+    check(launches["render_depth"] == want,
+          f"maplanning raw depth launches {launches['render_depth']} != "
+          f"{want} (1 at init + horizon / cam_every per epoch)")
+    check(sum(sum(v.values()) for k, v in got.items()
+              if k != "render_depth") == 0,
+          "maplanning launched a render + process / rollout / update kernel")
+    for row in m_info["history"]:
+        for key in ("success_rate", "env_success_rate"):
+            check(0.0 <= row[key] <= 1.0, f"maplanning {key} {row[key]}")
+    print(f"[train maplanning] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profile_epoch(m_trainer, m_ts, "maplanning",
+                  groups={"render_depth": ("render_depth",),
+                          "convs": CONV_WORDS})
+    del m_trainer, m_ts
+    torch.cuda.empty_cache()
+
+    # ---- 17. Avoid training --------------------------------------------------
+    phase(17)
+    reset_counts(kernels)
+    a_trainer, a_ts, a_info = train_and_reload(
+        runner_mod, ckpt, load_cfg("avoid"), "avoid", AVOID_EPOCHS, run_root,
+        g, kernels)
+    got = a_info["launches"]
+    avoid_renders = got["render_process"].get("render_process", 0)
+    want = 1 + AVOID_EPOCHS * (a_trainer.cfg.horizon // a_trainer.cam_every)
+    print(f"[train avoid] {AVOID_EPOCHS} epochs in {a_info['train_s']:.2f} s;"
+          f" launches {got}", flush=True)
+    check(avoid_renders == want,
+          f"avoid render launches {avoid_renders} != {want} (1 at init + "
+          f"horizon / cam_every per epoch)")
+    check(sum(sum(v.values()) for k, v in got.items()
+              if k != "render_process") == 0,
+          "avoid launched a raw depth / rollout / update kernel")
+    for row in a_info["history"]:
+        check(0.0 <= row["success_rate"] <= 1.0,
+              f"avoid success_rate {row['success_rate']}")
+    profile_epoch(a_trainer, a_ts, "avoid",
+                  groups={"render": ("render_process",),
+                          "convs": CONV_WORDS})
+    del a_trainer, a_ts
+    torch.cuda.empty_cache()
+
+    # ---- 18. DepthGen generates a dataset ------------------------------------
+    phase(18)
+    out_dir = os.path.join(run_root, "depthgen_frames")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dg_task = envs.make_task("depthgen", num_envs=DEPTHGEN_ENVS, device=dev)
+    reset_counts(kernels)
+    t0 = time.time()
+    saved = dg_task.generate(out_dir, DEPTHGEN_FRAMES, seed=7)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    dg_launches = dict(rc.DEPTH_KERNEL.launches)
+    files = sorted(os.listdir(out_dir))
+    print(f"[depthgen] {saved} frames of {DEPTHGEN_ENVS} envs in "
+          f"{gen_s:.2f} s; launches {dg_launches}", flush=True)
+    check(saved == len(files) == DEPTHGEN_FRAMES,
+          f"depthgen wrote {len(files)} files for {saved} frames")
+    check(dg_launches.get("render_depth", 0)
+          == DEPTHGEN_FRAMES // DEPTHGEN_ENVS
+          and sum(sum(k.launches.values()) for k in kernels)
+          == dg_launches["render_depth"],
+          f"depthgen launches {dg_launches} != "
+          f"{DEPTHGEN_FRAMES // DEPTHGEN_ENVS} raw depth renders")
+    lo, hi, blank = 1.0, 0.0, 0
+    for name in files:
+        img = np.load(os.path.join(out_dir, name))
+        check(img.shape == (120, 212) and img.dtype == np.float32,
+              f"depthgen frame {name}: {img.shape} {img.dtype}")
+        check(bool(np.isfinite(img).all()), f"depthgen frame {name}: "
+                                            f"not finite")
+        lo, hi = min(lo, float(img.min())), max(hi, float(img.max()))
+        blank += int(float(img.min()) == float(img.max()))
+    print(f"[depthgen] frames [120, 212] float32, values in [{lo:.4f}, "
+          f"{hi:.4f}], blank frames {blank}", flush=True)
+    check(0.0 <= lo and hi <= 1.0 and blank == 0,
+          "depthgen frames out of [0, 1] or blank")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # ---- 19. raw depth kernel timing -------------------------------------------
+    phase(19)
+    depth_times = {}
+    for shape, (d_inp, d_live) in depth_cases.items():
+        depth_times[shape] = (
+            cuda_time_ms(lambda: rc.render_depth_packed(d_inp)),
+            cuda_time_ms(lambda: rc.render_depth_packed_plain(d_inp),
+                         PLAIN_REPS),
+            *depth_bound(d_inp, d_live))
+        k_ms, p_ms, b_ms, b_by = depth_times[shape]
+        print(f"[time] render_depth {shape}: kernel {k_ms:.3f} ms (plain "
+              f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}; records cast per env "
+              f"{[round(x, 3) for x in d_live]})", flush=True)
+    times["render_depth"] = depth_times["maplanning"]
 
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]
@@ -835,6 +1091,8 @@ def main():
               max(env_err, rew_err)),
         entry("render_process", "render_process", "render_process.cu",
               "airgym_tpu/render/pallas_raycast.py:530", render_err),
+        entry("render_depth", "render_depth", "render_depth.cu",
+              "airgym_tpu/render/pallas_raycast.py:366", depth_err),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

@@ -158,7 +158,7 @@ def test_obs_noise_scales():
 
 def test_make_task_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenvs.make_task("avoid", device="cpu")
+        tenvs.make_task("customized", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tenvs.make_task("hovering", ctl_mode="pos", device="cpu")
     with pytest.raises(KeyError):

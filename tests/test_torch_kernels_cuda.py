@@ -134,3 +134,33 @@ def test_render_kernel_matches_plain(device, cull):
     torch.cuda.synchronize()
     assert out_k.shape == (256, 1, 212, 120)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("task,cull", [("maplanning", None),
+                                       ("depthgen", None),
+                                       ("depthgen", 4.5)],
+                         ids=["maplanning", "depthgen", "depthgen-guarded"])
+def test_render_depth_kernel_matches_plain(device, task, cull):
+    """The raw depth kernel on MAPlanning's sphere scene (after a few
+    steps) and on DepthGen's 168-record scene, culled or not."""
+    from airgym_tpu_torch import envs
+    from airgym_tpu_torch.render import raycast as rc
+    t = envs.make_task(task, num_envs=64, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    state = t.initial_state(gen)
+    if task == "maplanning":
+        for _ in range(5):
+            a = torch.rand((t.flat_n, 4), generator=gen, device=device) - 0.5
+            a[:, 3] = -0.69
+            state, _ = t.step(state, a, gen, render=False)
+        scene = t.scene(state.core.root, state.goal)
+    else:
+        scene = t.scene(state)
+    inp = rc.prepare(t.cam_cfg, state.core.root, scene, None, cull)
+    before = rc.DEPTH_KERNEL.launches["render_depth"]
+    out_k = rc.render_depth_packed(inp)
+    assert rc.DEPTH_KERNEL.launches["render_depth"] == before + 1
+    out_p = rc.render_depth_packed_plain(inp)
+    torch.cuda.synchronize()
+    assert out_k.shape == (inp.origins.shape[0], 212, 120)
+    torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=1e-6)
