@@ -12,6 +12,8 @@ depth image [B, 1, W, H] is normalised per pixel, encoded to 30 features,
 and the MLP reads [observation ++ features], normalised by the
 'observation' running stats. Its keys are ``actor_cnn.features.{0,3,6}``
 (convs), ``.features.{2,5,8}`` (batch norms) and ``actor_cnn.fc``.
+``cnn_impl='pallas'`` runs the conv stack in the fused kernels of
+``experiments/fused_cnn.py`` on the same parameters.
 
 The ResNet / VAE encoders, the separate critic trunk, a state-dependent
 sigma and activations other than elu are ROADMAP.md queue A item 14 and
@@ -24,6 +26,10 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from airgym_tpu_torch.experiments import fused_cnn
+
+CNN_IMPLS = ("auto", "xla", "pallas")
 
 
 def _lecun_normal_(w: torch.Tensor, scale: float,
@@ -69,9 +75,13 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def folded(self):
+        """(s, t) in float32; the running stats get no gradient."""
         s = self.weight * torch.rsqrt(self.running_var + 1e-5)
-        t = self.bias - self.running_mean * s
+        return s, self.bias - self.running_mean * s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s, t = self.folded()
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
 
 
@@ -92,6 +102,31 @@ class _Conv(nn.Module):
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
+def fold_conv0(weight: torch.Tensor, bias: torch.Tensor):
+    """conv0 [16, 1, 5, 5] -> (w0 [64, 64], b0 [64]): the JAX package's
+    ``_FoldedConv0(return_matrix=True)``. Rows (cell a, cell b, s2d channel
+    2p + q), columns (output pixel parity, filter); b0 is the bias tiled
+    x4. Autograd carries the matrix's gradient back to the weight."""
+    k = weight.permute(2, 3, 1, 0)                        # HWIO [5, 5, 1, F]
+    f = k.shape[-1]
+    wk = nn.functional.pad(k, (0, 0, 0, 0, 0, 1, 0, 1))  # [6, 6, 1, F]
+    wk = wk.reshape(3, 2, 3, 2, f).permute(0, 2, 1, 3, 4).reshape(3, 3, 4, f)
+    cols = [nn.functional.pad(wk, (0, 0, 0, 0, q, 1 - q, p, 1 - p))
+            for p in (0, 1) for q in (0, 1)]
+    return torch.stack(cols, dim=-2).reshape(64, 4 * f), torch.tile(bias, (4,))
+
+
+def fold_conv1(weight: torch.Tensor) -> torch.Tensor:
+    """conv1 [32, 16, 3, 3] -> w1 [256, 32]: the JAX package's
+    ``_CellConv1(return_matrix=True)``, a 2 x 2-cell stride-1 conv over
+    the folded conv0 layout; rows (cell a, cell b, folded channel)."""
+    k = weight.permute(2, 3, 1, 0)                        # HWIO [3, 3, Ci, F]
+    cin, f = k.shape[2], k.shape[3]
+    kp = nn.functional.pad(k, (0, 0, 0, 0, 1, 0, 1, 0))  # index = dy + 1
+    w = kp.reshape(2, 2, 2, 2, cin, f)                    # [a, p, b, q, Ci, F]
+    return w.permute(0, 2, 1, 3, 4, 5).reshape(16 * cin, f)
+
+
 class CNNEncoder(nn.Module):
     """Depth-image feature extractor, layer for layer the reference
     CNNFeatureExtractor: conv(16,5,s2) -> ReLU -> BN, conv(32,3,s2) -> ReLU
@@ -100,14 +135,28 @@ class CNNEncoder(nn.Module):
     (the camera's width is the conv's first spatial axis).
 
     ``compute_dtype`` bfloat16 (default) runs the convs in bf16 with float32
-    parameters; None runs them in float32. The convolutions go to cuDNN on
-    the card (the JAX package leaves them to XLA outside any kernel)."""
+    parameters; None runs them in float32.
+
+    ``impl``: 'auto' or 'xla' (the default) sends the convolutions to cuDNN
+    on the card; 'pallas' runs the whole stack up to the pool in the fused
+    kernels of ``experiments/fused_cnn.py`` (plain versions on the CPU),
+    with the weights folded here, and needs H and W divisible by 4. Both
+    use the same parameters. 'pallas_interpret' is the JAX package's
+    interpret mode: here 'pallas' on a CPU tensor is its counterpart."""
 
     def __init__(self, in_channels: int = 1, feature_dim: int = 30,
                  compute_dtype=torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 impl: str = "auto"):
         super().__init__()
+        if impl == "pallas_interpret":
+            raise ValueError("impl='pallas_interpret' is the JAX package's "
+                             "interpret mode; use impl='pallas' on a CPU "
+                             "tensor, which runs the plain versions")
+        if impl not in CNN_IMPLS:
+            raise ValueError(f"impl must be one of {CNN_IMPLS}, got {impl!r}")
         self.compute_dtype = compute_dtype
+        self.impl = impl
         self.features = nn.Sequential(
             _Conv(in_channels, 16, 5), nn.ReLU(), FrozenBatchNorm(16),
             _Conv(16, 32, 3), nn.ReLU(), FrozenBatchNorm(32),
@@ -118,9 +167,27 @@ class CNNEncoder(nn.Module):
         _lecun_normal_(self.fc.weight, 1.0, generator)
         nn.init.zeros_(self.fc.bias)
 
+    def fused_weights(self):
+        """The fused kernels' 12 inputs, folded from the parameters."""
+        f = self.features
+        w0, b0 = fold_conv0(f[0].weight, f[0].bias)
+        s0, t0 = f[2].folded()
+        s1, t1 = f[5].folded()
+        s2, t2 = f[8].folded()
+        return {"w0": w0, "b0": b0, "s0": torch.tile(s0, (4,)),
+                "t0": torch.tile(t0, (4,)), "w1": fold_conv1(f[3].weight),
+                "b1": f[3].bias, "s1": s1, "t1": t1,
+                "w2": f[6].weight.permute(2, 3, 1, 0).reshape(288, 64),
+                "b2": f[6].bias, "s2": s2, "t2": t2}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
+        if self.impl == "pallas":
+            # [B, 1, W, H] -> the JAX package's NHWC [B, W, H, 1]
+            pooled = fused_cnn.encode_pooled(x.permute(0, 2, 3, 1),
+                                             self.fused_weights())
+            return self.fc(pooled)
         x = self.features(x)
         return self.fc(torch.mean(x.to(torch.float32), dim=(2, 3)))
 
@@ -140,7 +207,7 @@ class ActorCritic(nn.Module):
                  activation: str = "elu", separate: bool = False,
                  fixed_sigma: bool = True, image_encoder=None,
                  image_feature_dim: int = 30,
-                 cnn_compute_dtype=torch.bfloat16,
+                 cnn_compute_dtype=torch.bfloat16, cnn_impl: str = "auto",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if separate or not fixed_sigma or activation != "elu":
@@ -158,7 +225,7 @@ class ActorCritic(nn.Module):
         if image_encoder == "cnn":
             self.actor_cnn = CNNEncoder(feature_dim=image_feature_dim,
                                         compute_dtype=cnn_compute_dtype,
-                                        generator=generator)
+                                        generator=generator, impl=cnn_impl)
             in_dim = num_obs + image_feature_dim
         self.actor_mlp = MLP(in_dim, units)
         self.mu = nn.Linear(units[-1], num_actions)

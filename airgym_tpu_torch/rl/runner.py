@@ -112,6 +112,10 @@ class Runner:
         self.params = yaml_cfg.get("params", yaml_cfg)
         return self
 
+    def network_kw(self) -> Dict[str, Any]:
+        """The trainer's ``PPO(network_kw=...)``: the YAML's network."""
+        return network_kw_from_params(self.params)
+
     def build(self, args: Dict[str, Any]):
         cfg = self.params.get("config", {})
         task_name = args.get("task") or cfg.get("env_name", "hovering")
@@ -131,7 +135,7 @@ class Runner:
             raise ValueError(
                 f"env_config.use_image={use_image} contradicts task "
                 f"{task_name!r} (obs_is_dict={task.obs_is_dict})")
-        network_kw = network_kw_from_params(self.params)
+        network_kw = self.network_kw()
         fused = (cfg.get("use_fused_rollout") and ctl_mode == "rate"
                  and task_name in FUSED_TRAINERS
                  and num_envs % fr.TILE == 0

@@ -57,8 +57,21 @@ Phases, each of which exits non-zero on failure:
  18. generate DepthGen's dataset at 1024 envs, 2048 frames (2 raw depth
      launches) and check every frame;
  19. time the raw depth kernel and its plain version at the MAPlanning
-     and DepthGen shapes, and print one JSON line listing every ported
-     kernel.
+     and DepthGen shapes;
+ 20. hold the fused CNN kernels against their plain versions at the
+     Planning path's shapes: the forward at B = 4096 x 212 x 120 in bf16
+     (the rollout's encodes), forward + backward at B = 609 (a minibatch's
+     unique frames) in bf16 and at B = 64 in float32, two backward runs
+     bitwise equal;
+ 21. train Planning (configs/ppo_planning.yaml, 4096 envs) for 2 epochs
+     through the runner's epoch loop with the trainer
+     PPO(network_kw={..., "cnn_impl": "pallas"}): every metric finite,
+     the launch counts (forward 8 + 240, backward 240, render 6 per
+     epoch, render 1 at init), no cuDNN convolution in the profiled epoch,
+     save and reload, peak device memory;
+ 22. time both CNN kernels and their plain versions beside their bounds,
+     and the cuDNN stack (impl='auto') at the same shapes as a yardstick,
+     and print one JSON line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
@@ -86,8 +99,10 @@ TIMING_REPS = 20                # kernels; plain versions take PLAIN_REPS
 PLAIN_REPS = 5
 ENV_N, ENV_STEPS = 131072, 64   # env-only kernel: main-path run and timing
 
-# H100 SXM: 67 TFLOP/s FP32 outside the tensor cores, 3.35 TB/s HBM3
+# H100 SXM: 67 TFLOP/s FP32 outside the tensor cores, 989 TFLOP/s of bf16
+# on the tensor cores (dense), 3.35 TB/s HBM3
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # FP32 operations of one env-only step per env, counted by hand from
 # csrc/quad_step.cuh (each division, square root and transcendental as
@@ -115,6 +130,16 @@ DEPTH_HIT = 1e8
 MAPLANNING_EPOCHS = 2           # at the YAML's full width: 16,384 actors
 AVOID_EPOCHS = 2
 DEPTHGEN_ENVS, DEPTHGEN_FRAMES = 1024, 2048
+# the fused CNN kernels vs their plain versions, of max|ref|: float32 sums
+# in another order (forward / gradients); bf16 also flips a few roundings
+# of the activations and of g0 / g1 / g2 (measured ~2e-5 / ~1e-4 on an
+# H100)
+CNN_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+CNN_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# device kernels of cuDNN convolutions and their layout copies, none of
+# which may run on the cnn_impl='pallas' path
+CUDNN_WORDS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+               "nchwtonhwc", "nhwctonchw", "winograd", "convolve")
 
 
 T0 = time.time()
@@ -151,8 +176,8 @@ def cuda_time_ms(fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -303,15 +328,19 @@ def update_vs_plain(fu, args, kw, tag):
 
 
 def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
-                     probe_gen, kernels, num_envs=None):
-    """Train through the runner; save / reload the native checkpoint and
-    the reference .pth. Returns (a trainer of the run's config, the run's
-    TrainState, the run info)."""
+                     probe_gen, kernels, num_envs=None, network_kw=None):
+    """Train through the runner, its trainer built with ``network_kw``
+    over the YAML's (as ``PPO(network_kw=...)``); save / reload the native
+    checkpoint and the reference .pth. Returns (a trainer of the run's
+    config, the run's TrainState, the run info)."""
     params = yaml_cfg["params"]
     params["config"]["max_epochs"] = epochs
     params["config"]["save_best_after"] = 1
     params["seed"] = 42
     runner = runner_mod.Runner().load(yaml_cfg)
+    if network_kw:
+        yaml_kw = runner.network_kw()
+        runner.network_kw = lambda: {**yaml_kw, **network_kw}
     args = {"task": task, "ctl_mode": "rate", "device": "cuda",
             "run_root": run_root, "log_every": 1, "num_envs": num_envs}
     t0 = time.time()
@@ -359,12 +388,13 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
     return trainer, ts_run, info
 
 
-def profile_epoch(trainer, ts, tag, groups=None):
+def profile_epoch(trainer, ts, tag, groups=None, forbid=()):
     """One warm epoch, then one under torch.profiler: wall, device busy,
     the top kernels by device time. The profiler slows the host, so the
     busy time is also set against the warm epoch's own wall. Only device
     activity is traced: a vision epoch's millions of host op events took
-    minutes to read back and are not used."""
+    minutes to read back and are not used. Fails if a device event's name
+    holds a word of ``forbid``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -408,6 +438,10 @@ def profile_epoch(trainer, ts, tag, groups=None):
     for ms, count, key in rows[:8]:
         print(f"[profile {tag}]   {ms:8.3f} ms  x{count:<5d} {key[:70]}",
               flush=True)
+    banned = [key for _, _, key in rows
+              if any(w in key.lower() for w in forbid)]
+    check(not banned, f"profile {tag}: kernels that must not run: "
+                      f"{[k[:70] for k in banned[:5]]}")
 
 
 def render_bound(inp, live_mean):
@@ -589,6 +623,117 @@ def depth_vs_plain(rc, inp, tag):
     return err, live
 
 
+def cnn_macs(h, w, folded=False):
+    """Multiply-adds of one image through the conv stack: (forward,
+    backward with its recompute; the backward adds each conv's weight
+    gradient and, above conv0, its input gradient, and no image
+    cotangent). By default the convolutions' own, which the function needs:
+    conv0 5x5 1 -> 16 at the 2 x 2 outputs of each 4 x 4 cell, conv1 3x3
+    16 -> 32 per cell, conv2 3x3 32 -> 64 per conv2 position. ``folded``
+    counts the products the kernels execute instead, w0 [64, 64], w1
+    [256, 32] and w2 [288, 64], structural zeros included."""
+    hc, wc = h // 4, w // 4
+    ho, wo = (hc + 1) // 2, (wc + 1) // 2
+    if folded:
+        c0, c1, c2 = hc * wc * 64 * 64, hc * wc * 256 * 32, ho * wo * 288 * 64
+    else:
+        c0, c1, c2 = (hc * wc * 4 * 16 * 25, hc * wc * 32 * 16 * 9,
+                      ho * wo * 64 * 32 * 9)
+    return c0 + c1 + c2, (c0 + c1 + c2) + 2 * c2 + 2 * c1 + c0
+
+
+def cnn_bound(fc, x, backward, peak=None):
+    """(bound ms, what bounds it) of one fused CNN call on these inputs:
+    the convolutions' products (``cnn_macs``) at ``peak`` (by default the
+    operands' own: bf16 tensor cores or FP32), the image and weights read
+    once, the pooled output (forward) or the cotangent and the gradients
+    (backward) moved once."""
+    b, h, w = x.shape
+    fwd, bwd = cnn_macs(h, w)
+    flops = 2.0 * b * (bwd if backward else fwd)
+    es = x.element_size()
+    nbytes = b * h * w * es + fc.N_MAT * es + fc.N_ROWS * 4
+    nbytes += (b * 64 + fc.N_PARAM) * 4 if backward else b * 64 * 4
+    if peak is None:
+        peak = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
+    return bound_ms(flops, nbytes, peak)
+
+
+def cnn_inputs(fc, dev, b, dtype, seed):
+    """Normalised-looking images [b, 212, 120] and the kernel inputs folded
+    from a seeded CNNEncoder with non-trivial conv biases and batch norms,
+    and a cotangent [b, 64]."""
+    from airgym_tpu_torch.models.actor_critic import CNNEncoder
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = CNNEncoder(compute_dtype=dtype, impl="pallas",
+                     generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        for i in (0, 3, 6):
+            enc.features[i].bias.normal_(0.0, 0.1, generator=g)
+        for i in (2, 5, 8):
+            bn = enc.features[i]
+            bn.running_mean.normal_(0.0, 0.3, generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(0.0, 0.2, generator=g)
+        w = enc.fused_weights()
+        ws = [w[k].detach().to(dtype) if k in fc.MAT
+              else w[k].detach().reshape(-1).float() for k in fc.W_KEYS]
+    x = torch.randn((b, 212, 120), generator=g, device=dev).to(dtype)
+    return x, ws, torch.randn((b, 64), generator=g, device=dev)
+
+
+def cnn_vs_plain(fc, x, ws, dp, tag):
+    """The fused CNN kernels vs their plain versions on the same inputs
+    (the backward only if ``dp`` is given, run twice: bitwise equal).
+    Returns (max |err| of the features, max |err| of the gradients)."""
+    out_k = fc._fwd(x, ws)
+    out_p = fc.encode_pooled_plain(x, ws)
+    torch.cuda.synchronize()
+    check(tuple(out_k.shape) == (x.shape[0], 64)
+          and bool(torch.isfinite(out_k).all()), f"cnn {tag}: features")
+    scale = float(out_p.abs().max())
+    err = float((out_k - out_p).abs().max())
+    check(err <= CNN_FWD_TOL[x.dtype] * scale,
+          f"cnn {tag}: forward max|err| {err:.3e} > "
+          f"{CNN_FWD_TOL[x.dtype]:g} x {scale:.3e}")
+    msg = f"[cnn {tag}] B={x.shape[0]} {x.dtype}: forward max|err| " \
+          f"{err:.3e} (max|ref| {scale:.3e})"
+    if dp is None:
+        print(msg, flush=True)
+        return err, None
+    g_k, g_k2 = fc._bwd(x, ws, dp), fc._bwd(x, ws, dp)
+    g_p = fc.encode_pooled_plain_bwd(x, ws, dp)
+    torch.cuda.synchronize()
+    g_err, worst = 0.0, 0.0
+    for key, a, a2, r in zip(fc.W_KEYS, g_k, g_k2, g_p):
+        check(torch.equal(a, a2), f"cnn {tag}: two backward runs differ "
+                                  f"at {key}")
+        e, sc = float((a - r).abs().max()), float(r.abs().max())
+        check(e <= CNN_BWD_TOL[x.dtype] * sc,
+              f"cnn {tag}: gradient {key} max|err| {e:.3e} > "
+              f"{CNN_BWD_TOL[x.dtype]:g} x {sc:.3e}")
+        g_err, worst = max(g_err, e), max(worst, e / max(sc, 1e-30))
+    print(f"{msg}; gradients max|err| {g_err:.3e} (at most {worst:.2e} of "
+          f"a tensor's max|ref|), two backward runs bitwise equal",
+          flush=True)
+    return err, g_err
+
+
+def cnn_checks(fc, dev):
+    """Phase 20: the forward at B = 4096 in bf16 (the rollout's encodes),
+    forward + backward at B = 609 in bf16 (a minibatch's unique frames)
+    and at B = 64 in float32. Returns (errors, the inputs to time)."""
+    x4, ws4, _ = cnn_inputs(fc, dev, 4096, torch.bfloat16, 41)
+    e4, _ = cnn_vs_plain(fc, x4, ws4, None, "rollout 4096")
+    x6, ws6, dp6 = cnn_inputs(fc, dev, 609, torch.bfloat16, 42)
+    e6, g6 = cnn_vs_plain(fc, x6, ws6, dp6, "update 609")
+    x64, ws64, dp64 = cnn_inputs(fc, dev, 64, torch.float32, 43)
+    e64, g64 = cnn_vs_plain(fc, x64, ws64, dp64, "float32 64")
+    return ((max(e4, e6, e64), max(g6, g64)),
+            {"fwd": (x4, ws4), "bwd": (x6, ws6, dp6)})
+
+
 def depth_checks(envs, rc, dev):
     """Phase 15: the raw depth kernel at MAPlanning's full shape (4096
     envs x 4 robots, after 30 env steps), at DepthGen's 1024-env scene of
@@ -632,7 +777,9 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
 
     from airgym_tpu_torch import envs
+    from airgym_tpu_torch.experiments import fused_cnn as fc
     from airgym_tpu_torch.kernels import build
+    from airgym_tpu_torch.models.actor_critic import CNNEncoder
     from airgym_tpu_torch.models.actor_critic import ActorCritic
     from airgym_tpu_torch.ops import fused_hovering as fh
     from airgym_tpu_torch.ops import fused_rollout as fr
@@ -659,7 +806,8 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     phase(2)
-    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL, rc.DEPTH_KERNEL]
+    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL, rc.DEPTH_KERNEL,
+               fc.KERNEL]
     secs = build.build_all(kernels)
     print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
     for k in kernels:
@@ -673,6 +821,11 @@ def main():
     print(f"[build] render_depth: dynamic shared memory "
           f"{rc.DEPTH_KERNEL.lib().render_depth_smem_bytes(168)} bytes per "
           f"block with 168 records", flush=True)
+    print(f"[build] fused_cnn: dynamic shared memory "
+          f"{fc.KERNEL.lib().fused_cnn_smem_bytes(212, 120)} bytes per block "
+          f"at 212 x 120; backward workspace "
+          f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120)} bytes "
+          f"per block", flush=True)
 
     cfg_dir = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
                            "..", "configs")
@@ -1069,6 +1222,102 @@ def main():
               f"{[round(x, 3) for x in d_live]})", flush=True)
     times["render_depth"] = depth_times["maplanning"]
 
+    # ---- 20. the fused CNN kernels vs their plain versions ----------------
+    phase(20)
+    (cnn_fwd_err, cnn_bwd_err), cnn_case = cnn_checks(fc, dev)
+
+    # ---- 21. Planning with cnn_impl='pallas' -------------------------------
+    phase(21)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    c_trainer, c_ts, c_info = train_and_reload(
+        runner_mod, ckpt, load_cfg("planning"), "planning", PLANNING_EPOCHS,
+        run_root, g, kernels, network_kw={"cnn_impl": "pallas"})
+    got = c_info["launches"]
+    check(c_ts.model.actor_cnn.impl == "pallas" and c_trainer.frame_dedup,
+          "planning pallas: the trainer must run the fused CNN with frame "
+          "dedup")
+    steps = c_trainer.num_minibatches * c_trainer.cfg.mini_epochs
+    renders = c_trainer.cfg.horizon // c_trainer.cam_every
+    # per epoch: the rollout encodes its first frame, each rendered frame
+    # and the bootstrap frame; every Adam step encodes its unique frames
+    want = {"fused_cnn_fwd": PLANNING_EPOCHS * (renders + 2 + steps),
+            "fused_cnn_bwd": PLANNING_EPOCHS * steps}
+    for key, n in want.items():
+        launches[key] = got["fused_cnn"].get(key, 0)
+        check(launches[key] == n, f"planning pallas: {key} launches "
+                                  f"{launches[key]} != {n}")
+    c_renders = got["render_process"].get("render_process", 0)
+    check(c_renders == 1 + PLANNING_EPOCHS * renders,
+          f"planning pallas: render launches {c_renders} != "
+          f"{1 + PLANNING_EPOCHS * renders}")
+    check(sum(sum(v.values()) for k, v in got.items()
+              if k not in ("fused_cnn", "render_process")) == 0,
+          "planning pallas launched a rollout / update / raw depth kernel")
+    for row in c_info["history"]:
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        check(not bad, f"planning pallas epoch {row['epoch']}: {bad} not "
+                       f"finite")
+        check(0.0 <= row["success_rate"] <= 1.0,
+              f"planning pallas success_rate {row['success_rate']}")
+    print(f"[train planning pallas] {PLANNING_EPOCHS} epochs ({steps} Adam "
+          f"steps each) in {c_info['train_s']:.2f} s; launches {got}",
+          flush=True)
+    print(f"[train planning pallas] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profile_epoch(c_trainer, c_ts, "planning pallas",
+                  groups={"fused_cnn": ("fused_cnn",),
+                          "render": ("render_process",),
+                          "convs": CONV_WORDS}, forbid=CUDNN_WORDS)
+    del c_trainer, c_ts
+    torch.cuda.empty_cache()
+
+    # ---- 22. fused CNN timing, the cuDNN stack beside it -------------------
+    phase(22)
+    x4, ws4 = cnn_case["fwd"]
+    x6, ws6, dp6 = cnn_case["bwd"]
+    times["fused_cnn_fwd"] = (
+        cuda_time_ms(lambda: fc._fwd(x4, ws4)),
+        cuda_time_ms(lambda: fc.encode_pooled_plain(x4, ws4), PLAIN_REPS),
+        *cnn_bound(fc, x4, False))
+    times["fused_cnn_bwd"] = (
+        cuda_time_ms(lambda: fc._bwd(x6, ws6, dp6)),
+        cuda_time_ms(lambda: fc.encode_pooled_plain_bwd(x6, ws6, dp6),
+                     PLAIN_REPS),
+        *cnn_bound(fc, x6, True))
+    for key, x, bwd in (("fused_cnn_fwd", x4, False),
+                        ("fused_cnn_bwd", x6, True)):
+        k_ms, p_ms, b_ms, b_by = times[key]
+        need = cnn_macs(*x.shape[1:])[int(bwd)]
+        done = cnn_macs(*x.shape[1:], folded=True)[int(bwd)]
+        print(f"[time] {key} B={x.shape[0]} bf16: kernel {k_ms:.3f} ms "
+              f"(plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by}; at the FP32 "
+              f"peak {cnn_bound(fc, x, bwd, PEAK_FP32)[0]:.4f}); "
+              f"{need / 1e6:.2f} M MACs per image needed, {done / 1e6:.2f} M "
+              f"executed as folded products", flush=True)
+    fwd609_ms = cuda_time_ms(lambda: fc._fwd(x6, ws6))
+    print(f"[time] fused_cnn_fwd B=609 bf16: kernel {fwd609_ms:.3f} ms "
+          f"(bound {cnn_bound(fc, x6, False)[0]:.4f})", flush=True)
+    # the encoders as the trainer calls them, fused and cuDNN (several
+    # library calls: a yardstick, not library_ms)
+    for impl in ("pallas", "auto"):
+        enc = CNNEncoder(impl=impl, generator=torch.Generator()
+                         .manual_seed(44)).to(dev)
+        params = list(enc.parameters())
+        img4, img6 = x4[:, None], x6[:, None]
+
+        def fwd4():
+            with torch.no_grad():
+                enc(img4)
+
+        def step6():
+            torch.autograd.grad(enc(img6).sum(), params)
+
+        print(f"[time] CNNEncoder(impl={impl!r}) bf16: forward B=4096 "
+              f"{cuda_time_ms(fwd4, 5):.3f} ms, forward + backward B=609 "
+              f"{cuda_time_ms(step6, 5):.3f} ms", flush=True)
+        del enc, params
+
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]
         return {"name": name, "route": "cuda",
@@ -1093,6 +1342,10 @@ def main():
               "airgym_tpu/render/pallas_raycast.py:530", render_err),
         entry("render_depth", "render_depth", "render_depth.cu",
               "airgym_tpu/render/pallas_raycast.py:366", depth_err),
+        entry("fused_cnn_fwd", "fused_cnn_fwd", "fused_cnn.cu",
+              "airgym_tpu/experiments/fused_cnn.py:238", cnn_fwd_err),
+        entry("fused_cnn_bwd", "fused_cnn_bwd", "fused_cnn.cu",
+              "airgym_tpu/experiments/fused_cnn.py:251", cnn_bwd_err),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

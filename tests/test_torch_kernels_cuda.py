@@ -164,3 +164,77 @@ def test_render_depth_kernel_matches_plain(device, task, cull):
     torch.cuda.synchronize()
     assert out_k.shape == (inp.origins.shape[0], 212, 120)
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=1e-6)
+
+
+def _cnn_inputs(device, b, h, w, dtype, seed=5):
+    from airgym_tpu_torch.experiments import fused_cnn as fc
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, h, w), generator=g, device=device).to(dtype)
+    ws = []
+    for k in fc.W_KEYS:
+        if k in fc.MAT:
+            r, c = fc.MAT[k]
+            ws.append((torch.randn((r, c), generator=g, device=device)
+                       / r ** 0.5).to(dtype))
+        elif k[0] == "s":
+            ws.append(0.5 + torch.rand(fc.ROW[k], generator=g, device=device))
+        else:
+            ws.append(0.2 * torch.randn(fc.ROW[k], generator=g,
+                                        device=device))
+    return x, ws, torch.randn((b, 64), generator=g, device=device)
+
+
+@pytest.mark.parametrize("b,h,w,dtype", [
+    (64, 212, 120, torch.bfloat16), (24, 212, 120, torch.float32),
+    (5, 28, 20, torch.bfloat16), (3, 16, 12, torch.float32)],
+    ids=["planning-bf16", "planning-f32", "ragged-bf16", "tiny-f32"])
+def test_fused_cnn_kernels_match_plain(device, b, h, w, dtype):
+    """The fused CNN forward and backward kernels against their plain
+    versions; float32 to 2e-5 (forward) / 2e-4 (gradients) of max|ref|,
+    bfloat16 to 1e-3 / 1e-2 (sums in another order flip a few bf16
+    roundings of the activations and of g0 / g1 / g2); two backward runs
+    agree to the bit; each wrapper counts one launch."""
+    from airgym_tpu_torch import device as dv
+    from airgym_tpu_torch.experiments import fused_cnn as fc
+    dv.disable_tf32()
+    x, ws, dp = _cnn_inputs(device, b, h, w, dtype)
+    f32 = dtype == torch.float32
+    before = dict(fc.KERNEL.launches)
+    out_k = fc._fwd(x, ws)
+    g_k = fc._bwd(x, ws, dp)
+    g_k2 = fc._bwd(x, ws, dp)
+    assert fc.KERNEL.launches["fused_cnn_fwd"] == \
+        before.get("fused_cnn_fwd", 0) + 1
+    assert fc.KERNEL.launches["fused_cnn_bwd"] == \
+        before.get("fused_cnn_bwd", 0) + 2
+    out_p = fc.encode_pooled_plain(x, ws)
+    g_p = fc.encode_pooled_plain_bwd(x, ws, dp)
+    torch.cuda.synchronize()
+    scale = float(out_p.abs().max())
+    assert float((out_k - out_p).abs().max()) <= (2e-5 if f32 else 1e-3) \
+        * scale
+    for key, a, a2, r in zip(fc.W_KEYS, g_k, g_k2, g_p):
+        assert torch.equal(a, a2), key
+        tol = (2e-4 if f32 else 1e-2) * float(r.abs().max())
+        assert float((a - r).abs().max()) <= tol, key
+
+
+def test_cnn_encoder_pallas_on_the_card(device):
+    """CNNEncoder(impl='pallas') launches the kernels for CUDA tensors and
+    its gradients reach the conv weights; against impl='auto' in float32
+    (TF32 off) the features agree within 1e-4."""
+    from airgym_tpu_torch import device as dv
+    from airgym_tpu_torch.experiments import fused_cnn as fc
+    from airgym_tpu_torch.models.actor_critic import CNNEncoder
+    dv.disable_tf32()
+    a = CNNEncoder(compute_dtype=None, impl="auto",
+                   generator=torch.Generator().manual_seed(1)).to(device)
+    b = CNNEncoder(compute_dtype=None, impl="pallas").to(device)
+    b.load_state_dict(a.state_dict())
+    img = torch.randn((16, 1, 212, 120), device=device)
+    before = fc.KERNEL.launches["fused_cnn_fwd"]
+    fb = b(img)
+    fb.sum().backward()
+    assert fc.KERNEL.launches["fused_cnn_fwd"] == before + 1
+    torch.testing.assert_close(fb, a(img), atol=1e-4, rtol=0)
+    assert float(b.features[0].weight.grad.abs().max()) > 0.0

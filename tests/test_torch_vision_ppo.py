@@ -156,13 +156,19 @@ def test_from_jax_and_pth_both_ways(tmp_path):
     assert meta2["epoch"] == 7
 
 
-def vision_pair():
+def vision_pair(cnn_impl="auto"):
+    """The JAX and the port's Planning trainers at one state; ``cnn_impl``
+    is the port's CNN path, 'pallas' against the JAX package's
+    'pallas_interpret'."""
     net = dict(image_encoder="cnn", cnn_compute_dtype=None)
+    jimpl = "pallas_interpret" if cnn_impl == "pallas" else cnn_impl
     jt = jppo.PPO(jenvs.make_task("planning", num_envs=N, **CAM),
-                  jppo.PPOConfig(**SMALL), network_kw=net)
+                  jppo.PPOConfig(**SMALL),
+                  network_kw=dict(net, cnn_impl=jimpl))
     tt = tppo.PPO(tenvs.make_task("planning", num_envs=N, device="cpu",
                                   **CAM),
-                  tppo.PPOConfig(**SMALL), network_kw=net)
+                  tppo.PPOConfig(**SMALL),
+                  network_kw=dict(net, cnn_impl=cnn_impl))
     ts_j = jt.init(jax.random.PRNGKey(0))
     _, _, j_rms, _ = obs_and_stats(seed=7)
     ts_j = ts_j._replace(obs_rms=j_rms)
@@ -192,8 +198,10 @@ def vision_dataset(seed=8):
     return d, frames
 
 
-def test_vision_loss_and_update_match_jax():
-    jt, tt, ts_j, ts_t = vision_pair()
+@pytest.mark.parametrize("cnn_impl", ["auto", "pallas"])
+def test_vision_loss_and_update_match_jax(cnn_impl):
+    jt, tt, ts_j, ts_t = vision_pair(cnn_impl)
+    assert ts_t.model.actor_cnn.impl == cnn_impl
     assert tt.frame_dedup and jt.frame_dedup and tt.num_frames == 3
     d, frames = vision_dataset()
     dj, dt = to_jax(d), to_torch(d)
