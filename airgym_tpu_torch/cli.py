@@ -33,7 +33,8 @@ def get_args(argv=None):
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="native .pt checkpoint to resume from")
+                   help="native .pt or reference .pth checkpoint to "
+                        "resume from")
     p.add_argument("--file", default=None,
                    help="algorithm config YAML (default: packaged "
                         "configs/ppo_<task>.yaml)")

@@ -13,7 +13,8 @@
   actor_cnn.fc, running_mean_std.* or, for dict obs,
   running_mean_std.running_mean_std.{image,observation}.*, and
   value_mean_std.*, stats in float64), which the JAX package's
-  ``import_pth`` / ``export_pth`` also read and write.
+  ``import_pth`` / ``export_pth`` also read and write. ``restore_pth``
+  resumes from one: parameters, stats, epoch and frame.
 * ``from_jax``: carries a JAX TrainState's parameters, running stats and
   Adam state, given as numpy pytrees, into the native format (flax HWIO
   conv kernels become torch OIHW).
@@ -180,6 +181,16 @@ def import_pth(path: str, model, obs_rms=None, value_rms=None):
     else:
         obs_rms = rms("running_mean_std", obs_rms)
     return obs_rms, rms("value_mean_std", value_rms), meta
+
+
+def restore_pth(ts, path: str):
+    """Resume a TrainState from a reference .pth: its parameters, running
+    stats, epoch and frame. The file carries no optimizer state, so Adam
+    and lr stay as ``init`` made them (the JAX runner's .pth resume)."""
+    obs_rms, value_rms, meta = import_pth(path, ts.model, ts.obs_rms,
+                                          ts.value_rms)
+    return dataclasses.replace(ts, obs_rms=obs_rms, value_rms=value_rms,
+                               epoch=meta["epoch"], frame=meta["frame"])
 
 
 # ---------------------------------------------------------------------------

@@ -163,7 +163,9 @@ class Runner:
         ck_dir = os.path.join(run_dir, "nn")
         ts = trainer.init(seed)
         if args.get("checkpoint"):
-            ts = ckpt.restore(ts, ckpt.load(args["checkpoint"]))
+            path = args["checkpoint"]
+            ts = (ckpt.restore_pth(ts, path) if path.endswith(".pth")
+                  else ckpt.restore(ts, ckpt.load(path)))
         elif args.get("transfer_checkpoint"):
             raise NotImplementedError(
                 "warm starts across observation widths (the robot-count "
