@@ -1,8 +1,8 @@
 """Fused PPO update phase: all mini_epochs x nmb minibatch Adam steps in
 one call (counterpart of airgym_tpu/ops/fused_update.py).
 
-``fused_update`` launches ``csrc/fused_update.cu`` for CUDA tensors (two
-kernels per Adam step, all enqueued by one host call) and runs
+``fused_update`` launches ``csrc/fused_update.cu`` for CUDA tensors (one
+persistent cooperative kernel runs every Adam step of the call) and runs
 ``fused_update_plain`` for CPU tensors. The plain version repeats the
 kernel's arithmetic: it is a loop over the same hand-derived forward and
 backward, not autograd.
@@ -107,11 +107,11 @@ def unflatten(flat: torch.Tensor, obs: int) -> UpdatePack:
 class _UpdateArgs(ctypes.Structure):
     """Mirror of ``struct UpdateArgs`` in csrc/fused_update.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "params", "m", "v", "lr", "count", "acc", "metrics", "mus", "sig",
+        "params", "m", "v", "lr", "count", "metrics", "mus", "sig",
         "partials", "grad", "obs", "act", "adv", "ret", "nlp_old")]
         + [(n, ctypes.c_int) for n in (
             "obs_dim", "batch", "nmb", "mini_epochs", "truncate_grads",
-            "adaptive_lr")]
+            "adaptive_lr", "grid")]
         + [(n, ctypes.c_float) for n in (
             "clip_lo", "clip_hi", "e_clip", "inv_mb", "critic_inv",
             "bounds_inv", "half_critic", "bounds_coef", "entropy_coef",
@@ -120,9 +120,27 @@ class _UpdateArgs(ctypes.Structure):
 
 KERNEL = build.CudaKernel("fused_update", {
     "fused_update_launch": [ctypes.POINTER(_UpdateArgs), ctypes.c_void_p],
-    "fused_update_partials_stride": [ctypes.c_int]})
+    "fused_update_partials_stride": [ctypes.c_int],
+    "fused_update_grid": [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)]})
 
-_SAMPLES_PER_BLOCK = 32      # S in csrc/fused_update.cu
+# at most this many persistent blocks per update call (the card gives
+# SMs x resident blocks per SM: 132 on an H100)
+GRID_CAP = 128
+_grids: Dict[tuple, int] = {}
+
+
+def grid_size(obs: int, device: torch.device) -> int:
+    """Blocks of the persistent update kernel at ``obs`` features on
+    ``device``: SMs x resident blocks per SM, at most ``GRID_CAP``; raises
+    if the card can hold none."""
+    key = (device.index, obs, GRID_CAP)
+    if key not in _grids:
+        g = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            KERNEL.call("fused_update_grid", obs, GRID_CAP, ctypes.byref(g))
+        _grids[key] = g.value
+    return _grids[key]
 
 
 def _check(obs_n, actions, adv, returns, neglogp, mus0, sigma0, packs,
@@ -176,40 +194,56 @@ def fused_update(obs_n, actions, adv, returns, neglogp, mus0, sigma0,
                                   mus0, sigma0, pack, m_pack, v_pack, lr,
                                   count, nmb=nmb, mini_epochs=mini_epochs,
                                   cfg=cfg)
-    dev = obs_n.device
     B, obs = obs_n.shape
     if obs not in KERNEL_OBS:
         raise ValueError(f"the update kernel is built for {KERNEL_OBS} "
                          f"observation features, got {obs}")
+    dev = obs_n.device
+    return _kernel_update(KERNEL, grid_size(obs, dev),
+                          torch.cuda.current_stream(dev).cuda_stream, obs_n,
+                          actions, adv, returns, neglogp, mus0, sigma0, pack,
+                          m_pack, v_pack, lr, count, nmb=nmb,
+                          mini_epochs=mini_epochs, cfg=cfg)
+
+
+def _kernel_update(kernel, grid, stream, obs_n, actions, adv, returns,
+                   neglogp, mus0, sigma0, pack, m_pack, v_pack, lr, count, *,
+                   nmb, mini_epochs, cfg):
+    """One launch of ``kernel``'s ``fused_update_launch`` with ``grid``
+    blocks on ``stream``, its buffers on ``obs_n``'s device (a CPU build of
+    the source takes CPU tensors and no stream)."""
+    dev = obs_n.device
+    B, obs = obs_n.shape
     mb = B // nmb
-    nblk = -(-mb // _SAMPLES_PER_BLOCK)
-    lib = KERNEL.lib()
-    stride = lib.fused_update_partials_stride(obs)
+    stride = kernel.lib().fused_update_partials_stride(obs)
     f32 = dict(dtype=torch.float32, device=dev)
-    params, m, v = flatten(pack), flatten(m_pack), flatten(v_pack)
+    # the kernel stages the parameters as float4: pad them to a multiple
+    # of 4 floats
+    n = num_params(obs)
+    params = torch.zeros(-(-n // 4) * 4, **f32)
+    params[:n] = flatten(pack)
+    m, v = flatten(m_pack), flatten(v_pack)
     lr_b, count_b = lr.clone(), count.clone()
-    acc = torch.zeros(8, **f32)
     met = torch.zeros(8, **f32)
     mus = mus0.contiguous().clone()
     sig = sigma0.reshape(1, ACT).repeat(nmb, 1).contiguous()
-    partials = torch.empty(nblk * stride, **f32)
-    grad = torch.empty(num_params(obs), **f32)
+    partials = torch.empty(grid * stride, **f32)
+    grad = torch.empty(n, **f32)
     data = [x.contiguous() for x in (obs_n, actions, adv, returns, neglogp)]
     ptr = lambda x: x.data_ptr()
     inv = 1.0 / mb
     args = _UpdateArgs(
-        ptr(params), ptr(m), ptr(v), ptr(lr_b), ptr(count_b), ptr(acc),
-        ptr(met), ptr(mus), ptr(sig), ptr(partials), ptr(grad),
+        ptr(params), ptr(m), ptr(v), ptr(lr_b), ptr(count_b), ptr(met),
+        ptr(mus), ptr(sig), ptr(partials), ptr(grad),
         *[ptr(x) for x in data],
         obs, B, nmb, mini_epochs, int(bool(cfg["truncate_grads"])),
-        int(bool(cfg["adaptive_lr"])),
+        int(bool(cfg["adaptive_lr"])), grid,
         1.0 - cfg["e_clip"], 1.0 + cfg["e_clip"], cfg["e_clip"], inv,
         cfg["critic_coef"] * inv, cfg["bounds_coef"] * inv,
         0.5 * cfg["critic_coef"], cfg["bounds_coef"], cfg["entropy_coef"],
         cfg["grad_norm"], cfg["kl_threshold"], cfg["min_lr"], cfg["max_lr"])
-    KERNEL.call("fused_update_launch", ctypes.byref(args),
-                torch.cuda.current_stream(dev).cuda_stream)
-    KERNEL.launches[f"obs{obs}"] += 2 * nmb * mini_epochs
+    kernel.call("fused_update_launch", ctypes.byref(args), stream)
+    kernel.launches[f"obs{obs}"] += 1
     metrics = {k: met[i] for i, k in enumerate(METRICS)}
     return (unflatten(params, obs), unflatten(m, obs), unflatten(v, obs),
             lr_b, count_b, metrics)

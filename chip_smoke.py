@@ -11,27 +11,35 @@ Phases, each of which exits non-zero on failure:
      the main-path shape (4096 envs x 24 steps, obs noise on);
   4. hold the update kernel (18 features) against its plain version at
      the main-path shape (B = 98,304, minibatch 2048, 48 minibatches,
-     5 mini-epochs);
+     5 mini-epochs: 240 Adam steps in one cooperative launch), two kernel
+     runs on the same inputs bitwise equal;
   5. train the default Hovering PPO (configs/ppo_hovering.yaml, 4096
      envs) for a few epochs through the runner, with the kernels' launch
-     counters set to 0 just before and read just after, then save and
+     counters set to 0 just before and read just after (1 rollout and 1
+     update launch per epoch; the Adam count 240 per epoch), then save and
      reload the checkpoint;
-  6. time each kernel and its plain version with CUDA events;
-  7. profile one steady epoch (device busy share, device time by kernel);
+  6. time each kernel and its plain version with CUDA events, the update
+     kernel's persistent grid G printed beside its time and bound, and the
+     update once more with G capped at half;
+  7. profile one steady epoch (device busy share, device time by kernel,
+     exactly one update kernel);
   8. hold the Balloon (4096 x 32) and Tracking (4096 x 24) rollout
      kernels against their plain versions, with resets, time-outs and
      balloon hits in the window, the update kernel at 18 features against
      its plain version at Balloon's shape (B = 131,072, 64 minibatches)
-     and at 48 features at B = 98,304;
+     and at 48 features at B = 98,304, each with two bitwise-equal kernel
+     runs;
   9. hold the env-only Hovering kernel against its plain version at 4096
      envs x 64 steps with resets, then drive it once at 131,072 envs x 64
      (counters set to 0 before, read after) and hold that run against the
      plain version too;
  10. train Balloon (configs/ppo_balloon.yaml at 4096 envs) and Tracking
      (configs/ppo_tracking.yaml) for 3 epochs each through the runner,
-     counters checked (Balloon: 1 rollout + 640 update launches per epoch,
-     Tracking: 1 + 480), save and reload each, and profile one epoch each;
- 11. time the new kernels and their plain versions;
+     counters checked (1 rollout + 1 update launch per epoch; the Adam
+     count 320 / 240 per epoch), save and reload each, and profile one
+     epoch each (exactly one update kernel);
+ 11. time the Balloon / Tracking / env-only kernels and the 48-feature
+     update (with its G) and their plain versions;
  12. hold the fused render + post-process kernel against its plain
      version: at Planning's full shape (4096 envs, 212 x 120, 40 trees, a
      goal ball and the ground, culled at 4.5 m, after some env steps), on
@@ -295,8 +303,15 @@ def update_case(fu, model, obs_rms, g, B, obs_dim, lr, pcfg, nmb):
 
 def update_vs_plain(fu, args, kw, tag):
     res_k = fu.fused_update(*args, **kw)
+    res_k2 = fu.fused_update(*args, **kw)
     res_p = fu.fused_update_plain(*args, **kw)
     torch.cuda.synchronize()
+    # one cooperative launch per call; every sum in a fixed order
+    check(all(torch.equal(fu.flatten(a), fu.flatten(b))
+              for a, b in zip(res_k[:3], res_k2[:3]))
+          and torch.equal(res_k[3], res_k2[3])
+          and all(torch.equal(res_k[5][k], res_k2[5][k]) for k in fu.METRICS),
+          f"update {tag}: two kernel runs on the same inputs differ")
     update_err = 0.0
     for which, (pk, pp) in zip(("params", "m", "v"),
                                zip(res_k[:3], res_p[:3])):
@@ -319,11 +334,12 @@ def update_vs_plain(fu, args, kw, tag):
               + METRIC_RTOL * abs(a),
               f"update {tag} metric {key}: kernel {b} vs plain {a}")
     B = args[0].shape[0]
+    grid = fu.grid_size(args[0].shape[1], args[0].device)
     print(f"[update {tag}] B={B} mb={B // kw['nmb']} nmb={kw['nmb']} "
-          f"mini_epochs={kw['mini_epochs']}: max|param err| "
-          f"{update_err:.3e} lr {float(res_k[3]):.3e} count "
-          f"{float(res_k[4]):.0f} kl {float(res_k[5]['kl']):.3e}",
-          flush=True)
+          f"mini_epochs={kw['mini_epochs']} G={grid}: "
+          f"max|param err| {update_err:.3e} lr {float(res_k[3]):.3e} count "
+          f"{float(res_k[4]):.0f} kl {float(res_k[5]['kl']):.3e}; two "
+          f"kernel runs bitwise equal", flush=True)
     return update_err
 
 
@@ -388,13 +404,14 @@ def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
     return trainer, ts_run, info
 
 
-def profile_epoch(trainer, ts, tag, groups=None, forbid=()):
+def profile_epoch(trainer, ts, tag, groups=None, forbid=(), expect=None):
     """One warm epoch, then one under torch.profiler: wall, device busy,
     the top kernels by device time. The profiler slows the host, so the
     busy time is also set against the warm epoch's own wall. Only device
     activity is traced: a vision epoch's millions of host op events took
     minutes to read back and are not used. Fails if a device event's name
-    holds a word of ``forbid``."""
+    holds a word of ``forbid``, or if the events whose name holds a key of
+    ``expect`` do not number its value."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -438,6 +455,12 @@ def profile_epoch(trainer, ts, tag, groups=None, forbid=()):
     for ms, count, key in rows[:8]:
         print(f"[profile {tag}]   {ms:8.3f} ms  x{count:<5d} {key[:70]}",
               flush=True)
+    for word, want in (expect or {}).items():
+        got = sum(count for _, count, key in rows if word in key)
+        print(f"[profile {tag}] {word}: {got} launch(es) in the epoch",
+              flush=True)
+        check(got == want, f"profile {tag}: {got} {word} launches in one "
+                           f"epoch, expected {want}")
     banned = [key for _, _, key in rows
               if any(w in key.lower() for w in forbid)]
     check(not banned, f"profile {tag}: kernels that must not run: "
@@ -877,15 +900,17 @@ def main():
                                        kernels)
     launches = {"hovering": fr.KERNEL.launches["hovering"],
                 "obs18": fu.KERNEL.launches["obs18"]}
-    per_epoch_update = 2 * nmb * me
     print(f"[train hovering] {EPOCHS} epochs in {info['train_s']:.2f} s; "
           f"launches {launches}", flush=True)
     check(launches["hovering"] == EPOCHS,
           f"rollout kernel launches {launches['hovering']} != "
           f"{EPOCHS} (1 per epoch)")
-    check(launches["obs18"] == EPOCHS * per_epoch_update,
-          f"update kernel launches {launches['obs18']} != "
-          f"{EPOCHS * per_epoch_update} ({per_epoch_update} per epoch)")
+    check(launches["obs18"] == EPOCHS,
+          f"update kernel launches {launches['obs18']} != {EPOCHS} (1 per "
+          f"epoch)")
+    check(float(ts_run.adam["count"][0]) == EPOCHS * nmb * me,
+          f"hovering Adam count {float(ts_run.adam['count'][0])} != "
+          f"{EPOCHS * nmb * me} ({nmb * me} steps per epoch)")
 
     # ---- 6. timing ----------------------------------------------------------
     phase(6)
@@ -904,12 +929,21 @@ def main():
         *update_bound(18, B, me))
     for key in ("hovering", "obs18"):
         k_ms, p_ms, b_ms, b_by = times[key]
-        print(f"[time] {key}: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
+        grid = (f"G={fu.grid_size(18, dev)} blocks, "
+                if key == "obs18" else "")
+        print(f"[time] {key}: kernel {k_ms:.3f} ms ({grid}plain {p_ms:.3f}, "
               f"bound {b_ms:.4f} by {b_by})", flush=True)
+    # the persistent grid capped at half the default, for comparison
+    cap = fu.GRID_CAP
+    fu.GRID_CAP = cap // 2
+    half_ms = cuda_time_ms(lambda: fu.fused_update(*upd_args, **upd_kw))
+    print(f"[time] obs18 at G={fu.grid_size(18, dev)} blocks: kernel "
+          f"{half_ms:.3f} ms", flush=True)
+    fu.GRID_CAP = cap
 
     # ---- 7. where one epoch's time goes (torch.profiler) --------------------
     phase(7)
-    profile_epoch(trainer, ts_run, "hovering")
+    profile_epoch(trainer, ts_run, "hovering", expect={"update_kernel": 1})
 
     # ---- 8. Balloon / Tracking rollouts, the update at 48 features ---------
     phase(8)
@@ -947,7 +981,7 @@ def main():
         task_inputs[name] = (p, t_pack, t_cfg.horizon)
         if name == "balloon":
             # the 18-feature update at Balloon's shape: B = 131,072, 64
-            # minibatches (640 launches per epoch)
+            # minibatches (320 Adam steps in one launch)
             Bb = n_envs * t_cfg.horizon
             updb_args, updb_kw = update_case(
                 fu, model, rms, g, Bb, 18, ts.lr, t_cfg,
@@ -995,9 +1029,9 @@ def main():
 
     # ---- 10. Balloon and Tracking training ------------------------------------
     phase(10)
-    paths = {"balloon": ("balloon", "obs18", 640),
-             "tracking": ("tracking", "obs48", 480)}
-    for name, (rkey, ukey, per_epoch) in paths.items():
+    paths = {"balloon": ("balloon", "obs18"),
+             "tracking": ("tracking", "obs48")}
+    for name, (rkey, ukey) in paths.items():
         reset_counts(kernels)
         t_trainer, t_ts, t_info = train_and_reload(
             runner_mod, ckpt, load_cfg(name), name, TASK_EPOCHS, run_root, g,
@@ -1007,11 +1041,13 @@ def main():
               f"{t_info['train_s']:.2f} s; launches {got}", flush=True)
         check(got[rkey] == TASK_EPOCHS,
               f"{name} rollout launches {got[rkey]} != {TASK_EPOCHS}")
-        check(got[ukey] == TASK_EPOCHS * per_epoch,
-              f"{name} update launches {got[ukey]} != "
-              f"{TASK_EPOCHS * per_epoch} ({per_epoch} per epoch)")
-        check(t_trainer.num_minibatches * 2 * t_trainer.cfg.mini_epochs
-              == per_epoch, f"{name}: unexpected minibatch count")
+        check(got[ukey] == TASK_EPOCHS,
+              f"{name} update launches {got[ukey]} != {TASK_EPOCHS} (1 per "
+              f"epoch)")
+        steps = t_trainer.num_minibatches * t_trainer.cfg.mini_epochs
+        check(float(t_ts.adam["count"][0]) == TASK_EPOCHS * steps,
+              f"{name} Adam count {float(t_ts.adam['count'][0])} != "
+              f"{TASK_EPOCHS * steps} ({steps} steps per epoch)")
         launches[rkey] = got[rkey]
         if ukey not in launches:
             launches[ukey] = got[ukey]
@@ -1019,7 +1055,7 @@ def main():
             for row in t_info["history"]:
                 check(0.0 <= row["success_rate"] <= 1.0,
                       f"balloon success_rate {row['success_rate']}")
-        profile_epoch(t_trainer, t_ts, name)
+        profile_epoch(t_trainer, t_ts, name, expect={"update_kernel": 1})
 
     # ---- 11. timing of the new kernels, the kernels line ------------------------
     phase(11)
@@ -1044,7 +1080,9 @@ def main():
                   4.0 * (2 * fh._F * ENV_N + ENV_N + 4)))
     for key in ("balloon", "tracking", "obs48", "env"):
         k_ms, p_ms, b_ms, b_by = times[key]
-        print(f"[time] {key}: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
+        grid = (f"G={fu.grid_size(48, dev)} blocks, "
+                if key == "obs48" else "")
+        print(f"[time] {key}: kernel {k_ms:.3f} ms ({grid}plain {p_ms:.3f}, "
               f"bound {b_ms:.4f} by {b_by})", flush=True)
 
     # ---- 12. the render + post-process kernel vs its plain version ---------

@@ -3,15 +3,24 @@ kernel (which interprets by itself off-TPU), from the same dataset,
 weights and Adam state, at 18 observation features (Hovering, Balloon)
 and 48 (Tracking).
 
+The kernel source itself, csrc/fused_update.cu, is also compiled for the
+CPU against csrc/cuda_emu.h (a cooperative launch of two blocks of 256
+std::threads) and held against the plain version.
+
 Tolerances are those of tests/test_fused_update.py: params and moments
 within 2e-3 * max|ref| + 1e-5 per tensor, lr to rtol 1e-6, count equal,
 metrics to rtol 5e-3 / atol 5e-4."""
+import ctypes
+import shutil
+import subprocess
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from airgym_tpu.ops import fused_update as jfu
+from airgym_tpu_torch.kernels import build
 from airgym_tpu_torch.ops import fused_update as tfu
 
 def shapes(obs=18):
@@ -124,3 +133,69 @@ def test_pack_roundtrip_and_checks():
         tfu.fused_update(*args, *packs, torch.tensor([1e-3]),
                          torch.tensor([0.0]), nmb=1, mini_epochs=1,
                          cfg=BASE_CFG)
+
+
+@pytest.fixture(scope="module")
+def emulated_kernel(tmp_path_factory):
+    """csrc/fused_update.cu compiled with g++ against csrc/cuda_emu.h (one
+    std::thread per CUDA thread, the grid barrier over all of them), as a
+    CudaKernel with the wrapper's entry points."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    out = tmp_path_factory.mktemp("emu") / "libfused_update_emu.so"
+    header = tfu.KERNEL.source.parent / "cuda_emu.h"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-ffp-contract=off", "-include", str(header), "-x", "c++",
+                    str(tfu.KERNEL.source), "-o", str(out), "-lpthread"],
+                   check=True, capture_output=True, timeout=300)
+    kernel = build.CudaKernel("fused_update_emu", tfu.KERNEL.entry_points)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in kernel.entry_points.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.airgym_error_string.argtypes = [ctypes.c_int]
+    lib.airgym_error_string.restype = ctypes.c_char_p
+    kernel._lib = lib
+    return kernel
+
+
+@pytest.mark.parametrize("obs_dim", [18, 48])
+def test_kernel_source_matches_plain_on_cpu(emulated_kernel, obs_dim):
+    """The persistent kernel on the emulated two-SM card (G = 2): 2
+    minibatches of 33 samples (blocks of 16 and 17: the second block walks
+    a full chunk and a ragged one), 2 mini-epochs, the adaptive lr on,
+    against the plain version; two runs bitwise equal; one launch each."""
+    kernel = emulated_kernel
+    g = ctypes.c_int(0)
+    kernel.call("fused_update_grid", obs_dim, tfu.GRID_CAP, ctypes.byref(g))
+    assert g.value == 2
+    with pytest.raises(RuntimeError, match="fused_update_grid"):
+        kernel.call("fused_update_grid", obs_dim, 0, ctypes.byref(g))
+
+    nmb, me = 2, 2
+    data, w, m, v = make_case(5 + obs_dim, B=66, obs_dim=obs_dim)
+    args = (*map(torch.from_numpy, data),
+            *(tfu.UpdatePack(*map(torch.from_numpy, x)) for x in (w, m, v)),
+            torch.tensor([3e-4]), torch.tensor([7.0]))
+    kw = dict(nmb=nmb, mini_epochs=me, cfg=BASE_CFG)
+    before = kernel.launches[f"obs{obs_dim}"]
+    runs = [tfu._kernel_update(kernel, 2, None, *args, **kw)
+            for _ in range(2)]
+    assert kernel.launches[f"obs{obs_dim}"] == before + 2
+    ref = tfu.fused_update_plain(*args, **kw)
+    got = runs[0]
+    for k in range(3):
+        for f in tfu._FIELDS:
+            a, b = getattr(ref[k], f), getattr(got[k], f)
+            scale = max(float(a.abs().max()), 1e-3)
+            assert float((a - b).abs().max()) < 2e-3 * scale + 1e-5, (k, f)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-6, atol=0)
+    assert float(got[4]) == float(ref[4]) == 7.0 + nmb * me
+    for key in tfu.METRICS:
+        torch.testing.assert_close(got[5][key], ref[5][key], rtol=5e-3,
+                                   atol=5e-4)
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(tfu.flatten(a), tfu.flatten(b))
+    assert all(torch.equal(runs[0][5][k], runs[1][5][k]) for k in tfu.METRICS)
+    assert torch.equal(runs[0][3], runs[1][3])

@@ -78,7 +78,9 @@ def test_env_only_kernel_matches_plain(device):
 @pytest.mark.parametrize("B,nmb,obs", [(4096, 4, 18), (1000, 10, 18),
                                        (4096, 4, 48)])
 def test_update_kernel_matches_plain(device, B, nmb, obs):
-    """(1000, 10): minibatches of 100 samples, a ragged last block."""
+    """(1000, 10): minibatches of 100 samples over the persistent grid,
+    so blocks hold one sample or none. One launch per call; two calls
+    agree to the bit."""
     model, rms = _model_and_stats(device, obs)
     g = torch.Generator(device=device).manual_seed(2)
     x = torch.randn((B, obs), generator=g, device=device)
@@ -101,8 +103,15 @@ def test_update_kernel_matches_plain(device, B, nmb, obs):
             fu.pack_update(zero), fu.pack_update(zero),
             torch.tensor([3e-4], device=device),
             torch.zeros(1, device=device))
+    before = fu.KERNEL.launches[f"obs{obs}"]
     k = fu.fused_update(*args, nmb=nmb, mini_epochs=2, cfg=cfg)
+    k2 = fu.fused_update(*args, nmb=nmb, mini_epochs=2, cfg=cfg)
+    assert fu.KERNEL.launches[f"obs{obs}"] == before + 2
     p = fu.fused_update_plain(*args, nmb=nmb, mini_epochs=2, cfg=cfg)
+    for a, b in zip(k[:3], k2[:3]):
+        assert torch.equal(fu.flatten(a), fu.flatten(b))
+    assert torch.equal(k[3], k2[3])
+    assert all(torch.equal(k[5][key], k2[5][key]) for key in fu.METRICS)
     for a, b in zip(k[0], p[0]):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a - b).abs().max()) < 2e-3 * scale + 1e-5
