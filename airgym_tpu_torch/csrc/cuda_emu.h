@@ -1,21 +1,27 @@
 // Test builds only, never part of a card build: the subset of CUDA that
-// fused_cnn.cu and fused_update.cu use, emulated on the CPU, so the kernel
-// sources themselves can be compiled with g++ and held against their plain
-// versions where there is no card (tests/test_torch_fused_cnn.py,
-// tests/test_torch_fused_update.py):
+// fused_cnn.cu (with mma_bf16.cuh) and fused_update.cu use, emulated on
+// the CPU, so the kernel sources themselves can be compiled with g++ and
+// held against their plain versions where there is no card
+// (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py):
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -ffp-contract=off -include cuda_emu.h
 //       -x c++ fused_cnn.cu -o libfused_cnn_emu.so -lpthread
 //
 // Each CUDA thread is a std::thread and __syncthreads is a std::barrier of
 // the block. An ordinary launch (emu_launch) runs the blocks one after
-// another, each kernel's dynamic shared memory a static array of the
-// kernel's own kMaxDynSmem bytes. A cooperative launch
-// (emu_launch_cooperative) runs all grid x block threads at once, gives
-// each block its own dynamic shared memory (filled with NaN), and the grid
-// barrier is one std::barrier over all of them. bf16 rounds to nearest even
+// another, each with the launch's dynamic shared memory filled with NaN
+// (a read of shared memory the kernel never wrote shows up). A
+// cooperative launch (emu_launch_cooperative) runs all grid x block
+// threads at once, gives each block its own dynamic shared memory (also
+// NaN), and the grid barrier is one std::barrier over all of them. bf16 rounds to nearest even
 // on the bits. It checks indexing, barriers and rounding points, not speed
 // or the GPU compiler.
+//
+// mma_bf16.cuh's warp-level product (emu_mma_16816): each lane writes its
+// fragments to its warp's exchange buffer, waits at the warp's barrier of
+// 32, reads the whole 16 x 16 A and 16 x 8 B tiles, computes its own four
+// D elements (the float64 sum of C and the 16 products, rounded once to
+// float32) and waits again before the buffer is reused.
 #pragma once
 
 #include <barrier>
@@ -40,20 +46,28 @@ struct EmuIdx { int x, y, z; };
 inline thread_local EmuIdx threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-// cooperative launches only: the block's dynamic shared memory and the
+// the block's dynamic shared memory; cooperative launches only: the
 // barrier of the whole grid
 inline thread_local float* emu_dyn_smem = nullptr;
 inline thread_local std::barrier<>* emu_grid_barrier = nullptr;
 inline void emu_grid_sync() { emu_grid_barrier->arrive_and_wait(); }
+// the warp of this thread: its barrier of 32 and fragment exchange buffer
+struct EmuWarp {
+  std::barrier<> bar{32};
+  uint32_t a[32][4], b[32][2];
+  float x[32];
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
 #define AIRGYM_COOP_DYN_SMEM(name) float* name = emu_dyn_smem
 #define AIRGYM_GRID_SYNC() emu_grid_sync()
 template <class T> inline T __ldcg(const T* p) { return *p; }
 
-// one array per kernel, shared by the block's threads
-#define FUSED_CNN_DYN_SMEM(name) alignas(16) static float name[kMaxDynSmem / 4]
+// the block's dynamic shared memory, NaN-filled by the launch
+#define FUSED_CNN_DYN_SMEM(name) float* name = emu_dyn_smem
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct uint4 { uint32_t x, y, z, w; };
 struct __nv_bfloat16 { uint16_t bits; };
 inline float __bfloat162float(__nv_bfloat16 v) {
   const uint32_t u = (uint32_t)v.bits << 16;
@@ -69,6 +83,45 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {(uint16_t)(u >> 16)};
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
+
+// a warp shuffle: each lane gets the value of lane ^ m
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  EmuWarp& w = *emu_warp;
+  const int l = threadIdx.x & 31;
+  w.x[l] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.x[l ^ m];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+// mma.sync m16n8k16 row.col f32.bf16.bf16.f32 (see the header note)
+inline void emu_mma_16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  EmuWarp& w = *emu_warp;
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
+  w.b[l][0] = b[0];
+  w.b[l][1] = b[1];
+  w.bar.arrive_and_wait();
+  auto half = [](uint32_t v, int hi) {
+    return (double)__bfloat162float({(uint16_t)(hi ? v >> 16 : v & 0xffffu)});
+  };
+  // A (r, k): lane (r & 7) * 4 + (k & 7) / 2, register (r >> 3) + 2 (k >> 3)
+  auto A = [&](int r, int k) {
+    return half(w.a[(r & 7) * 4 + ((k & 7) >> 1)][(r >> 3) + 2 * (k >> 3)], k & 1);
+  };
+  // B (k, n): lane n * 4 + (k & 7) / 2, register k >> 3
+  auto B = [&](int k, int n) {
+    return half(w.b[n * 4 + ((k & 7) >> 1)][k >> 3], k & 1);
+  };
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    double s = d[i];
+    for (int k = 0; k < 16; ++k) s += A(r, k) * B(k, n);
+    d[i] = (float)s;
+  }
+  w.bar.arrive_and_wait();
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 
 typedef void* cudaStream_t;
@@ -101,9 +154,12 @@ inline const char* cudaGetErrorString(int) { return "emulated CUDA error"; }
   }
 
 template <class F>
-void emu_launch(int grid, int block, F body) {
+void emu_launch(int grid, int block, size_t smem_bytes, F body) {
   for (int b = 0; b < grid; ++b) {
     std::barrier<> bar(block);
+    std::vector<float> smem(smem_bytes / sizeof(float) + 4,
+                            std::numeric_limits<float>::quiet_NaN());
+    std::vector<EmuWarp> warps((block + 31) / 32);
     std::vector<std::thread> threads;
     for (int t = 0; t < block; ++t)
       threads.emplace_back([&, t, b] {
@@ -112,13 +168,15 @@ void emu_launch(int grid, int block, F body) {
         blockDim = {block, 1, 1};
         gridDim = {grid, 1, 1};
         emu_barrier = &bar;
+        emu_warp = &warps[t / 32];
+        emu_dyn_smem = smem.data();
         body();
       });
     for (auto& th : threads) th.join();
   }
 }
 #define FUSED_CNN_LAUNCH(kernel, grid, block, smem, stream, ...) \
-  emu_launch(grid, block, [&] { kernel(__VA_ARGS__); })
+  emu_launch(grid, block, smem, [&] { kernel(__VA_ARGS__); })
 
 // all grid x block threads at once; returns cudaSuccess
 template <class F>

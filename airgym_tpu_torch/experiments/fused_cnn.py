@@ -61,8 +61,9 @@ KERNEL = build.CudaKernel("fused_cnn", {
     "fused_cnn_bwd_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "fused_cnn_smem_bytes": [ctypes.c_int] * 2,
-    "fused_cnn_workspace_floats": [ctypes.c_int] * 2,
-    "fused_cnn_bwd_blocks": [ctypes.c_int]})
+    "fused_cnn_workspace_floats": [ctypes.c_int] * 3,
+    "fused_cnn_bwd_blocks": [ctypes.c_int],
+    "fused_cnn_mma_probe": [ctypes.c_void_p] * 5})
 
 
 def geometry(h: int, w: int):
@@ -234,7 +235,8 @@ def _bwd(x: torch.Tensor, ws: List[torch.Tensor], dp: torch.Tensor
     lib, xc, mats, rows, is_bf16 = _kernel_args(x, ws)
     b, h, w = x.shape
     blocks = lib.fused_cnn_bwd_blocks(b)
-    work = torch.empty((blocks * lib.fused_cnn_workspace_floats(h, w),),
+    work = torch.empty((blocks * lib.fused_cnn_workspace_floats(h, w,
+                                                                 is_bf16),),
                        dtype=torch.float32, device=x.device)
     part = torch.empty((blocks, N_PARAM), dtype=torch.float32,
                        device=x.device)

@@ -69,17 +69,19 @@ Phases, each of which exits non-zero on failure:
  20. hold the fused CNN kernels against their plain versions at the
      Planning path's shapes: the forward at B = 4096 x 212 x 120 in bf16
      (the rollout's encodes), forward + backward at B = 609 (a minibatch's
-     unique frames) in bf16 and at B = 64 in float32, two backward runs
-     bitwise equal;
+     unique frames) in bf16 (the backward on mma.sync tensor cores) and at
+     B = 64 in float32 (scalar), two backward runs bitwise equal;
  21. train Planning (configs/ppo_planning.yaml, 4096 envs) for 2 epochs
      through the runner's epoch loop with the trainer
      PPO(network_kw={..., "cnn_impl": "pallas"}): every metric finite,
      the launch counts (forward 8 + 240, backward 240, render 6 per
      epoch, render 1 at init), no cuDNN convolution in the profiled epoch,
      save and reload, peak device memory;
- 22. time both CNN kernels and their plain versions beside their bounds,
-     and the cuDNN stack (impl='auto') at the same shapes as a yardstick,
-     and print one JSON line listing every ported kernel.
+ 22. time both CNN kernels and their plain versions beside their bounds
+     (the bf16 backward beside the scalar kernel's time it replaced, with
+     its workspace bytes), and the cuDNN stack (impl='auto') at the same
+     shapes as a yardstick, and print one JSON line listing every ported
+     kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
@@ -143,6 +145,10 @@ DEPTHGEN_ENVS, DEPTHGEN_FRAMES = 1024, 2048
 # of the activations and of g0 / g1 / g2 (measured ~2e-5 / ~1e-4 on an
 # H100)
 CNN_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+# the time at B = 609 of the scalar bf16 backward that the tensor-core
+# kernel replaced (this script's phase 22 on an H100 80GB HBM3 at 700 W),
+# printed beside the new kernel's
+SCALAR_BWD_MS = 10.369
 CNN_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 # device kernels of cuDNN convolutions and their layout copies, none of
 # which may run on the cnn_impl='pallas' path
@@ -737,9 +743,11 @@ def cnn_vs_plain(fc, x, ws, dp, tag):
               f"cnn {tag}: gradient {key} max|err| {e:.3e} > "
               f"{CNN_BWD_TOL[x.dtype]:g} x {sc:.3e}")
         g_err, worst = max(g_err, e), max(worst, e / max(sc, 1e-30))
-    print(f"{msg}; gradients max|err| {g_err:.3e} (at most {worst:.2e} of "
-          f"a tensor's max|ref|), two backward runs bitwise equal",
-          flush=True)
+    route = "mma.sync bf16 tensor cores" if x.dtype == torch.bfloat16 \
+        else "scalar FP32"
+    print(f"{msg}; backward ({route}) gradients max|err| {g_err:.3e} (at "
+          f"most {worst:.2e} of a tensor's max|ref|), two backward runs "
+          f"bitwise equal", flush=True)
     return err, g_err
 
 
@@ -847,8 +855,10 @@ def main():
     print(f"[build] fused_cnn: dynamic shared memory "
           f"{fc.KERNEL.lib().fused_cnn_smem_bytes(212, 120)} bytes per block "
           f"at 212 x 120; backward workspace "
-          f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120)} bytes "
-          f"per block", flush=True)
+          f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120, 1)} "
+          f"bytes per block in bf16, "
+          f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120, 0)} in "
+          f"float32", flush=True)
 
     cfg_dir = os.path.join(os.path.dirname(os.path.abspath(fr.__file__)),
                            "..", "configs")
@@ -1333,6 +1343,14 @@ def main():
               f"peak {cnn_bound(fc, x, bwd, PEAK_FP32)[0]:.4f}); "
               f"{need / 1e6:.2f} M MACs per image needed, {done / 1e6:.2f} M "
               f"executed as folded products", flush=True)
+    b_ms6 = times["fused_cnn_bwd"][0]
+    work_b = fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120, 1) * 4
+    print(f"[time] fused_cnn_bwd B=609 bf16 on mma.sync: kernel {b_ms6:.3f} "
+          f"ms beside {SCALAR_BWD_MS} ms of the scalar kernel it replaced "
+          f"(same card type); bound {times['fused_cnn_bwd'][2]:.4f} "
+          f"ms bf16, {cnn_bound(fc, x6, True, PEAK_FP32)[0]:.4f} ms FP32; "
+          f"workspace {work_b} bytes per block x "
+          f"{fc.KERNEL.lib().fused_cnn_bwd_blocks(609)} blocks", flush=True)
     fwd609_ms = cuda_time_ms(lambda: fc._fwd(x6, ws6))
     print(f"[time] fused_cnn_fwd B=609 bf16: kernel {fwd609_ms:.3f} ms "
           f"(bound {cnn_bound(fc, x6, False)[0]:.4f})", flush=True)

@@ -321,7 +321,7 @@ def test_kernel_source_matches_plain_on_cpu(emulated_kernels, dtype, shape):
         x.data_ptr(), *[m.data_ptr() for m in mats], rows.data_ptr(),
         out.data_ptr(), b, h, w, is_bf16, None) == 0
     blocks = lib.fused_cnn_bwd_blocks(b)
-    work = torch.empty(blocks * lib.fused_cnn_workspace_floats(h, w))
+    work = torch.empty(blocks * lib.fused_cnn_workspace_floats(h, w, is_bf16))
     part = torch.empty((blocks, tfc.N_PARAM))
     flat = torch.empty(tfc.N_PARAM)
     assert lib.fused_cnn_bwd_launch(
@@ -337,3 +337,22 @@ def test_kernel_source_matches_plain_on_cpu(emulated_kernels, dtype, shape):
                               tfc.encode_pooled_plain_bwd(x, ws, dp)):
         tol = (2e-4 if f32 else 1e-2) * float(want.abs().max())
         assert float((got - want).abs().max()) <= tol, key
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_emulated_mma_16816_matches_float64(emulated_kernels, seed):
+    """mma_bf16.cuh's m16n8k16 product through the emulation header (its
+    fragments swapped between the 32 emulated lanes of one warp): d = c +
+    a @ b for random bf16 tiles equals the float64 product rounded once to
+    float32, element for element."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(16, 16)).astype(np.float32)).to(
+        torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).to(
+        torch.bfloat16)                                  # [n][k]
+    c = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32))
+    d = torch.full((16, 8), float("nan"))
+    assert emulated_kernels.fused_cnn_mma_probe(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), None) == 0
+    ref = c.double() + a.double() @ b.double().T
+    assert torch.equal(d, ref.float())

@@ -228,6 +228,29 @@ def test_fused_cnn_kernels_match_plain(device, b, h, w, dtype):
         assert float((a - r).abs().max()) <= tol, key
 
 
+def test_mma_16816_lane_layout(device):
+    """One warp of mma_bf16.cuh's m16n8k16 bf16 product (csrc/fused_cnn.cu's
+    probe) against a float64 product of random bf16 tiles: a wrong lane
+    layout of A, B or D is off by O(1); the tensor cores' float32 sums
+    stay within 1e-5 of the sum of |terms|."""
+    from airgym_tpu_torch.experiments import fused_cnn as fc
+    g = torch.Generator(device=device).manual_seed(7)
+    for _ in range(3):
+        a = torch.randn((16, 16), generator=g, device=device).to(
+            torch.bfloat16)
+        b = torch.randn((8, 16), generator=g, device=device).to(
+            torch.bfloat16)                              # [n][k]
+        c = torch.randn((16, 8), generator=g, device=device)
+        d = torch.full((16, 8), float("nan"), device=device)
+        fc.KERNEL.call("fused_cnn_mma_probe", a.data_ptr(), b.data_ptr(),
+                       c.data_ptr(), d.data_ptr(),
+                       torch.cuda.current_stream(device).cuda_stream)
+        torch.cuda.synchronize()
+        ref = c.double() + a.double() @ b.double().T
+        size = c.double().abs() + a.double().abs() @ b.double().abs().T
+        assert bool(((d.double() - ref).abs() <= 1e-5 * size).all())
+
+
 def test_cnn_encoder_pallas_on_the_card(device):
     """CNNEncoder(impl='pallas') launches the kernels for CUDA tensors and
     its gradients reach the conv weights; against impl='auto' in float32
