@@ -20,40 +20,37 @@
 // The backward recomputes the forward and adds dw2 + dA1 (2 x 7.46 M),
 // dw1 + dA0 (2 x 7.33 M) and dw0 (2.54 M): 49.5 M (98.9 MFLOP). Planning's
 // forward at B = 4096 is 142 GFLOP: 0.144 ms at 989 TFLOP/s of bf16 tensor
-// cores, 2.12 ms at 67 TFLOP/s of FP32; its backward at B = 609 is 60 GFLOP
-// (0.061 / 0.90 ms). The image (bf16, 208 MB at B = 4096) moves in
+// cores, 2.12 ms at 67 TFLOP/s of FP32 (at B = 609, the update's unique
+// frames: 0.021 / 0.32 ms); its backward at B = 609 is 60 GFLOP (0.061 /
+// 0.90 ms). The image (bf16, 208 MB at B = 4096) moves in
 // ~0.06 ms. Operation-bound. The folded products below execute 1.56x
 // (forward) and 1.51x (backward) these counts: w0 holds 25 live taps in
 // each 64-row column, w1 144 in 256 rows.
 //
-// Design.
-// - Forward (both instances) and float32 backward: scalar FP32 FMAs, no
-//   tensor cores (f32 parity rules out TF32, so the float instance has no
-//   tensor-core form). Forward: one block of 512 threads per image (a
-//   persistent grid walks the batch); the weights as float (123 KB) and
-//   the bias / BN rows in shared memory; the block sweeps conv2's output
-//   rows two at a time, each step staging 20 image rows and computing 4
-//   cell rows of a0 and a1 into 5-row rings and 2 rows of a2, whose
-//   per-channel sums threads 0..63 keep in a fixed order. 202 KB of shared
-//   memory at 212 x 120: one block per SM. The float backward reruns that
-//   forward into a per-block float32 workspace (r0, a0, r1, a1, r2) and
-//   sweeps rows: conv2 (g2, dw2, the channel sums), dA1 -> g1 (each element
-//   gathered over its taps), conv1 (dw1, dA0 -> g0), conv0 (dw0); lanes
-//   walk positions, not weight rows (the first version read weight rows 64
-//   floats apart across lanes: 16-way bank conflicts).
-// - bf16 backward, on the tensor cores: all six per-image products are
-//   implicit GEMMs of warp-level mma.sync m16n8k16 bf16 tiles with float32
-//   sums (mma_bf16.cuh). Every operand is a bf16 value already (the image,
-//   the weights, a0, a1, g0, g1, g2) and bf16 x bf16 products are exact in
-//   float32, so the rounding points above do not move; only the order of
-//   the float32 sums does. One 512-thread block per SM over a fixed grid;
-//   the weights sit in shared memory as bf16 in both orientations the
-//   products need (126 KB), the rest (94 KB at 212 x 120) stages operands:
-//   . recompute conv0 + conv1 in chunks of 128 cells: x0 staged from the
-//     image (the next chunk's pixels loaded into registers meanwhile), a0
-//     kept in a ring of 256 cells for conv1's 2 x 2 taps; r0 / r1 (float)
-//     and a0 / a1 (bf16) go to the workspace. conv2 in chunks of 64
-//     positions, z2 copied in by cp.async, double-buffered; r2 (float) out;
+// Design: what runs where.
+// - bf16 (the trained path): forward and backward on the tensor cores.
+//   Every product is an implicit GEMM of warp-level mma.sync m16n8k16 bf16
+//   tiles with float32 sums (mma_bf16.cuh). Every operand is a bf16 value
+//   already (the image, the weights, a0, a1, g0, g1, g2) and bf16 x bf16
+//   products are exact in float32, so the rounding points above do not
+//   move; only the order of the float32 sums does. One 512-thread block per
+//   SM; the weights sit in shared memory as bf16 in both orientations the
+//   products need (126 KB), the rest (94 KB at 212 x 120) stages operands.
+//   The forward and the backward's recompute are the same two routines,
+//   with a compile-time flag (RESID) for the backward's residuals:
+//   . conv0 + conv1 in chunks of 128 cells: x0 staged from the image (the
+//     next chunk's pixels loaded into registers meanwhile), a0 kept in a
+//     ring of 256 cells for conv1's 2 x 2 taps; a1 (bf16) to the block's
+//     workspace, and with RESID r0 / r1 (float) and a0 too;
+//   . conv2 in chunks of 64 positions, z2 copied in from a1 by cp.async,
+//     double-buffered; with RESID r2 (float) out, else a2 = BN2(r2) summed
+//     into the pool: each lane over its positions in chunk order, the
+//     eight lanes of one t by a fixed butterfly, the four m-tile warps'
+//     partials in warp order by threads 0..63, times 1 / P.
+//   The forward is only that. Its workspace is a1 alone (hc x wc x 32
+//   bf16: 101,760 bytes per block at 212 x 120, 13.4 MB over 132 blocks,
+//   inside the 50 MB L2); it keeps conv2's cp.async copy-in as it is.
+//   The backward goes on:
 //   . conv2's backward in chunks of 32 positions: g2 (kept in shared
 //     memory, [position][64]) and dw2 = z2^T g2 (z2^T and g2^T staged with
 //     positions contiguous);
@@ -65,26 +62,43 @@
 //     g1 [cell][32] two bf16 values per register, dA0 gathered over its 4
 //     taps -> g0 (kept in shared memory), dw0 = x0^T g0 on the same chunk.
 //   Invalid taps read a zero row of shared memory (no branches). The
-//   workspace holds r0 / r1 / r2 as float (the BN scale gradients need
-//   them) and a0 / a1 / g1 as bf16: 1.12 MB per block at 212 x 120 (the
-//   float instance's 2.04 MB). A failed or refused launch returns its
-//   cudaError_t and the wrapper raises; there is no scalar bf16 path.
-// - Determinism (both instances): a fixed grid of min(B, 132) blocks, each
-//   walking images b = block, block + 132, ...; each thread (or warp) owns
-//   a fixed set of gradient elements and adds its sums into the block's
-//   partial row; the BN sums are taken per thread over a fixed set of
-//   positions in order and their partials added in a fixed order; a second
-//   launch adds the 132 partial rows in block order. No float atomics, so
-//   two runs agree to the bit, whatever the card's SM count.
+//   backward's workspace holds r0 / r1 / r2 as float (the BN scale
+//   gradients need them) and a0 / a1 / g1 as bf16: 1.12 MB per block at
+//   212 x 120. A failed or refused launch returns its cudaError_t and the
+//   wrapper raises; there is no scalar bf16 path (Num has no bf16 case).
+// - float32, both kernels: scalar FP32 FMAs, no tensor cores: f32 parity
+//   (2e-5 of max|ref|) rules out TF32, so the float instance has no
+//   tensor-core form. Forward: one block of 512 threads per image (a
+//   persistent grid walks the batch); the weights as float (123 KB) and
+//   the bias / BN rows in shared memory; the block sweeps conv2's output
+//   rows two at a time, each step staging 20 image rows and computing 4
+//   cell rows of a0 and a1 into 5-row rings and 2 rows of a2, whose
+//   per-channel sums threads 0..63 keep in a fixed order. 202 KB of shared
+//   memory at 212 x 120: one block per SM. The float backward reruns that
+//   forward into a per-block float32 workspace (r0, a0, r1, a1, r2; 2.04 MB
+//   at 212 x 120) and sweeps rows: conv2 (g2, dw2, the channel sums), dA1
+//   -> g1 (each element gathered over its taps), conv1 (dw1, dA0 -> g0),
+//   conv0 (dw0); lanes walk positions, not weight rows.
+// - Determinism (both instances): the forward's grid is min(B, SMs), the
+//   backward's a fixed min(B, 132), each block walking images b = block,
+//   block + grid, ...; each thread (or warp) owns a fixed set of output or
+//   gradient elements; the BN and pool sums are taken per thread over a
+//   fixed set of positions in order and their partials added in a fixed
+//   order; a second launch adds the backward's 132 partial rows in block
+//   order. No float atomics, so two runs agree to the bit (the backward's
+//   bits also do not depend on the card's SM count).
 // - FUSED_CNN_DYN_SMEM / FUSED_CNN_LAUNCH wrap the two CUDA-only
 //   constructs, so the source also compiles as C++ against cuda_emu.h,
-//   which emulates this subset of CUDA (mma.sync and warp shuffles
-//   included) on the CPU for the tests (they hold it against the plain
-//   version there).
-// Left for later: the forward on the tensor cores (it can reuse the bf16
-// recompute above), wgmma / TMA / warp specialisation, and the backward's
-// workspace round trip (about 3 MB moved per image, beyond the 50 MB L2
-// over 132 blocks), which now bounds it.
+//   which emulates this subset of CUDA (mma.sync, cp.async and warp
+//   shuffles included) on the CPU for the tests (they hold it against the
+//   plain version there).
+// Left for later: wgmma (the only way to the full tensor-core rate) and
+// TMA with warp specialisation in place of mma.sync and cp.async; two
+// blocks per SM (the forward alone needs only w0^T / w1^T / w2^T and the
+// recompute staging, about 142 KB, but the registers of 2 x 512 threads
+// would cap each at 64); the folded products' structural zeros (1.56x the
+// forward's multiply-adds); and the backward's workspace round trip (about
+// 3 MB moved per image, beyond the 50 MB L2 over 132 blocks).
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -135,6 +149,8 @@ struct Geom {
     return (long long)N_PARAM + (long long)RING * wc * (R0S + 32)
            + (long long)IMG_ROWS * ws + 2LL * wo * 64;
   }
+  // the bf16 forward's workspace per block in bf16 elements: a1
+  __host__ __device__ long long fwd_work_halves() const { return 32LL * hc * wc; }
   // the backward's workspace per block: float r0 a0 g0 a1 r1 g1 r2 g2, or
   // (bf16) float r0 r1 r2 and bf16 a0 a1 g1
   __host__ __device__ long long work_floats(bool bf16) const {
@@ -155,18 +171,12 @@ struct Work {
   }
 };
 
+// the scalar kernels' loads and roundings: float only (the bf16 instances
+// run on the tensor cores, so a scalar bf16 instance does not compile)
 template <typename T> struct Num;
 template <> struct Num<float> {
   static __device__ __forceinline__ float f(float x) { return x; }
   static __device__ __forceinline__ float rnd(float x) { return x; }
-};
-template <> struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ float rnd(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -720,6 +730,9 @@ struct WorkB {
     a0 = reinterpret_cast<uint16_t*>(r2 + (size_t)g.P * 64);
     a1 = a0 + C * 64; g1 = a1 + C * 32;
   }
+  // the forward's: a1 alone (hc x wc x 32 bf16), the residuals unused
+  __device__ explicit WorkB(uint16_t* a1_)
+      : r0(nullptr), r1(nullptr), r2(nullptr), a0(nullptr), a1(a1_), g1(nullptr) {}
 };
 
 __device__ __forceinline__ void st_pair(uint16_t* p, uint16_t lo, uint16_t hi) {
@@ -791,13 +804,14 @@ __device__ void stage_weights_mma(const uint16_t* __restrict__ w0,
   for (int i = threadIdx.x; i < 40; i += kThreads) sm[OF_ZERO + i] = 0.0f;
 }
 
-// The recompute, conv0 and conv1: r0, a0, r1, a1 of every cell, in chunks
-// of KCR cells. x0 [cell][k] is staged from the image (k = a*16 + c*4 +
+// conv0 and conv1 of every cell, in chunks of KCR cells: the backward's
+// recompute (RESID: r0, a0, r1 and a1 to the workspace) and the forward
+// (a1 alone). x0 [cell][k] is staged from the image (k = a*16 + c*4 +
 // p*2 + q reads pixel (4i - 2 + 2a + p, 4j - 2 + 2c + q); q = 0, 1 are one
 // aligned pair), the next chunk's pixels loaded into registers while this
-// chunk's products run. a0 goes to the workspace and to a ring of RING_C
-// cells, from which conv1 reads its taps (y - 1 + a, x - 1 + c). Ends
-// synchronised.
+// chunk's products run. a0 goes to a ring of RING_C cells, from which
+// conv1 reads its taps (y - 1 + a, x - 1 + c). Ends synchronised.
+template <bool RESID>
 __device__ void conv01_fwd_mma(const uint16_t* __restrict__ img, const MmaSmem& s,
                                const Geom& g, const WorkB& wk) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -862,8 +876,10 @@ __device__ void conv01_fwd_mma(const uint16_t* __restrict__ img, const MmaSmem& 
             rr[e] = relu_bias(d[j][2 * r + e], s.R[R_B0 + ch + e]);
             h[e] = mma::bf16_bits(bn(rr[e], s.R[R_S0 + ch + e], s.R[R_T0 + ch + e]));
           }
-          *reinterpret_cast<float2*>(wk.r0 + (size_t)cell * 64 + ch) = float2{rr[0], rr[1]};
-          st_pair(wk.a0 + (size_t)cell * 64 + ch, h[0], h[1]);
+          if constexpr (RESID) {
+            *reinterpret_cast<float2*>(wk.r0 + (size_t)cell * 64 + ch) = float2{rr[0], rr[1]};
+            st_pair(wk.a0 + (size_t)cell * 64 + ch, h[0], h[1]);
+          }
           st_pair(s.ring + (cell & (RING_C - 1)) * LD1 + ch, h[0], h[1]);
         }
       }
@@ -921,7 +937,8 @@ __device__ void conv01_fwd_mma(const uint16_t* __restrict__ img, const MmaSmem& 
             rr[e] = relu_bias(d[j][2 * r + e], s.R[R_B1 + ch + e]);
             h[e] = mma::bf16_bits(bn(rr[e], s.R[R_S1 + ch + e], s.R[R_T1 + ch + e]));
           }
-          *reinterpret_cast<float2*>(wk.r1 + cell * 32 + ch) = float2{rr[0], rr[1]};
+          if constexpr (RESID)
+            *reinterpret_cast<float2*>(wk.r1 + cell * 32 + ch) = float2{rr[0], rr[1]};
           st_pair(wk.a1 + cell * 32 + ch, h[0], h[1]);
         }
       }
@@ -930,14 +947,21 @@ __device__ void conv01_fwd_mma(const uint16_t* __restrict__ img, const MmaSmem& 
   __syncthreads();
 }
 
-// The recompute, conv2: r2 of every position, chunks of KCP positions; z2
-// [position][tap * 32 + c] copied in from a1 (cp.async, double-buffered:
-// the next chunk's copies run while this chunk's products do). Ends
-// synchronised.
-__device__ void conv2_fwd_mma(const MmaSmem& s, const Geom& g, const WorkB& wk) {
+// conv2 of every position, chunks of KCP positions: the backward's
+// recompute (RESID: r2 to the workspace) and the forward (out [64] = the
+// mean pool of a2 = BN2(r2)). z2 [position][tap * 32 + c] is copied in
+// from a1 (cp.async, double-buffered: the next chunk's copies run while
+// this chunk's products do). The pool in a fixed order: each lane sums
+// its positions' a2 chunk by chunk in registers, the eight lanes of one t
+// are added by sum_over_g, and threads 0..63 add the four m-tile warps'
+// partials in warp order; no atomics. Ends synchronised.
+template <bool RESID>
+__device__ void conv2_fwd_mma(const MmaSmem& s, const Geom& g, const WorkB& wk,
+                              float* out) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3, mq = warp & 3, nb = (warp >> 2) * 2;
   const int P = g.P;
+  float pool[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // channels (nb + j) * 8 + 2t + e
   auto copy_in = [&](int p0, int q) {
     for (int it = tid; it < KCP * 36; it += kThreads) {
       const int kq = it % 36, pl = it / 36, p = p0 + pl;
@@ -978,11 +1002,29 @@ __device__ void conv2_fwd_mma(const MmaSmem& s, const Geom& g, const WorkB& wk) 
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int n = (nb + j) * 8 + 2 * t;
-        *reinterpret_cast<float2*>(wk.r2 + (size_t)p * 64 + n) =
-            float2{relu_bias(d[j][2 * r], s.R[R_B2 + n]),
-                   relu_bias(d[j][2 * r + 1], s.R[R_B2 + n + 1])};
+        const float r0 = relu_bias(d[j][2 * r], s.R[R_B2 + n]);
+        const float r1 = relu_bias(d[j][2 * r + 1], s.R[R_B2 + n + 1]);
+        if constexpr (RESID) {
+          *reinterpret_cast<float2*>(wk.r2 + (size_t)p * 64 + n) = float2{r0, r1};
+        } else {
+          pool[j][0] += bn(r0, s.R[R_S2 + n], s.R[R_T2 + n]);
+          pool[j][1] += bn(r1, s.R[R_S2 + n + 1], s.R[R_T2 + n + 1]);
+        }
       }
     }
+  }
+  if constexpr (!RESID) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = sum_over_g(pool[j][e]);
+        if (gq == 0) s.red[mq * 64 + (nb + j) * 8 + 2 * t + e] = v;
+      }
+    __syncthreads();
+    if (tid < 64)
+      out[tid] = (((s.red[tid] + s.red[64 + tid]) + s.red[128 + tid]) + s.red[192 + tid])
+                 * (float)(1.0 / (double)P);
   }
   __syncthreads();
 }
@@ -1475,13 +1517,30 @@ __device__ void bwd_mma(const uint16_t* __restrict__ x, const float* __restrict_
   const float inv_p = (float)(1.0 / (double)g.P);
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     const uint16_t* img = x + (size_t)b * g.H * g.W;
-    conv01_fwd_mma(img, s, g, wk);
-    conv2_fwd_mma(s, g, wk);
+    conv01_fwd_mma<true>(img, s, g, wk);
+    conv2_fwd_mma<true>(s, g, wk, nullptr);
     if (tid < 64) dys[tid] = dp[(size_t)b * 64 + tid] * inv_p;
     __syncthreads();
     conv2_bwd_mma(s, g, wk, dys, part);
     conv2_data_bwd_mma(s, g, wk, part);
     conv10_bwd_mma(img, s, g, wk, part);
+  }
+}
+
+// The bf16 forward of the block's images on the tensor cores: conv0 and
+// conv1 (a1 to the block's workspace), then conv2 and the pool, through
+// the backward's recompute routines without their residuals.
+__device__ void fwd_mma(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w0,
+                        const uint16_t* __restrict__ w1, const uint16_t* __restrict__ w2,
+                        const float* __restrict__ rows, uint16_t* a1, float* out,
+                        float* sm, int B, const Geom& g) {
+  const WorkB wk(a1);
+  const MmaSmem s(sm, g);
+  stage_weights_mma(w0, w1, w2, rows, sm);
+  __syncthreads();
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    conv01_fwd_mma<false>(x + (size_t)b * g.H * g.W, s, g, wk);
+    conv2_fwd_mma<false>(s, g, wk, out + (size_t)b * 64);
   }
 }
 
@@ -1502,6 +1561,8 @@ __global__ void mma_probe_kernel(const uint16_t* a, const uint16_t* b,
   d[(gq + 8) * 8 + 2 * t + 1] = acc[3];
 }
 
+// bf16: the tensor-core forward; float: the scalar one (f32 parity rules
+// out TF32)
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cnn_fwd_kernel(const T* __restrict__ x,        // [B, H, W]
@@ -1509,15 +1570,22 @@ fused_cnn_fwd_kernel(const T* __restrict__ x,        // [B, H, W]
                      const T* __restrict__ w1,       // [256, 32]
                      const T* __restrict__ w2,       // [288, 64]
                      const float* __restrict__ rows, // [480]
+                     uint16_t* work,                 // bf16: [blocks, hc * wc * 32]
                      float* __restrict__ out,        // [B, 64]
                      int B, int H, int W) {
   FUSED_CNN_DYN_SMEM(sm);
   const Geom g(H, W);
-  stage_weights(w0, w1, w2, rows, sm);
-  __syncthreads();
-  for (int b = blockIdx.x; b < B; b += gridDim.x)
-    forward_image<T, false>(x + (size_t)b * H * W, sm, g, nullptr,
-                            out + (size_t)b * 64);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    fwd_mma(reinterpret_cast<const uint16_t*>(x), reinterpret_cast<const uint16_t*>(w0),
+            reinterpret_cast<const uint16_t*>(w1), reinterpret_cast<const uint16_t*>(w2),
+            rows, work + (size_t)blockIdx.x * g.fwd_work_halves(), out, sm, B, g);
+  } else {
+    stage_weights(w0, w1, w2, rows, sm);
+    __syncthreads();
+    for (int b = blockIdx.x; b < B; b += gridDim.x)
+      forward_image<T, false>(x + (size_t)b * H * W, sm, g, nullptr,
+                              out + (size_t)b * 64);
+  }
 }
 
 // the float32 backward: scalar FMAs (f32 parity rules out TF32)
@@ -1580,37 +1648,50 @@ __global__ void fused_cnn_reduce_kernel(const float* __restrict__ part,
   grads[p] = s;
 }
 
-// the bf16 backward's: the bf16 weights and the rows, then the staging
-long long bwd_mma_smem_bytes(const Geom& g) {
+// the bf16 kernels': the bf16 weights and the rows, then the staging
+long long mma_smem_bytes(const Geom& g) {
   return 4LL * OF_STAGE + MmaLayout(g).bytes();
 }
 
-// the forward's (and the float backward's); 0 unless the H x W image fits
-// every kernel
+// the float kernels'; 0 unless the H x W image fits every kernel
 int smem_bytes(int H, int W) {
   if (H < 4 || W < 4 || H % 4 || W % 4) return 0;
   const Geom g(H, W);
   const long long bytes = g.smem_floats() * 4;
-  return bytes > kMaxDynSmem || bwd_mma_smem_bytes(g) > kMaxDynSmem
+  return bytes > kMaxDynSmem || mma_smem_bytes(g) > kMaxDynSmem
                  || g.wc + 1 + KCR > RING_C ? 0 : (int)bytes;
 }
 
 template <typename T>
+int kernel_smem_bytes(int H, int W) {
+  return std::is_same<T, __nv_bfloat16>::value ? (int)mma_smem_bytes(Geom(H, W))
+                                               : smem_bytes(H, W);
+}
+
+// the forward's grid: one block per SM, at most B
+cudaError_t fwd_grid(int B, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *grid = B < sms ? B : sms;
+  return cudaSuccess;
+}
+
+template <typename T>
 int launch_fwd(const void* x, const void* w0, const void* w1, const void* w2,
-               const float* rows, float* out, int B, int H, int W,
+               const float* rows, void* work, float* out, int B, int H, int W,
                cudaStream_t st) {
-  const int smem = smem_bytes(H, W);
+  const int smem = kernel_smem_bytes<T>(H, W);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cnn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = B < sms ? B : sms;
+  int grid = 0;
+  if ((err = fwd_grid(B, &grid)) != cudaSuccess) return (int)err;
   FUSED_CNN_LAUNCH(fused_cnn_fwd_kernel<T>, grid, kThreads, smem, st,
                    (const T*)x, (const T*)w0, (const T*)w1, (const T*)w2,
-                   rows, out, B, H, W);
+                   rows, (uint16_t*)work, out, B, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -1618,8 +1699,7 @@ template <typename T>
 int launch_bwd(const void* x, const float* dp, const void* w0, const void* w1,
                const void* w2, const float* rows, float* work, float* part,
                float* grads, int B, int H, int W, cudaStream_t st) {
-  const int smem = std::is_same<T, __nv_bfloat16>::value
-                       ? (int)bwd_mma_smem_bytes(Geom(H, W)) : smem_bytes(H, W);
+  const int smem = kernel_smem_bytes<T>(H, W);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cnn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1637,14 +1717,28 @@ int launch_bwd(const void* x, const float* dp, const void* w0, const void* w1,
 
 AIRGYM_EXPORT_ERROR_STRING
 
-// Dynamic shared memory of one block at an H x W image, in bytes (0 if H
-// or W is not a multiple of 4 or the block would exceed the card's limit).
+// Dynamic shared memory of one float kernel's block at an H x W image, in
+// bytes (0 if H or W is not a multiple of 4 or a block of any of the
+// kernels, bf16 ones included, would exceed the card's limit).
 extern "C" int fused_cnn_smem_bytes(int H, int W) { return smem_bytes(H, W); }
 
 // Floats of the backward's workspace per block (bf16 = 1: the bf16
 // instance's, which keeps a0 / a1 / g1 in bf16 and g0 / g2 on chip).
 extern "C" int fused_cnn_workspace_floats(int H, int W, int bf16) {
   return (int)Geom(H, W).work_floats(bf16 != 0);
+}
+
+// Bytes of the forward's workspace per block (bf16 = 1: a1, hc x wc x 32
+// bf16; the float forward keeps a1 in shared memory and needs none).
+extern "C" int fused_cnn_fwd_workspace_bytes(int H, int W, int bf16) {
+  return bf16 ? (int)(2 * Geom(H, W).fwd_work_halves()) : 0;
+}
+
+// Blocks of the forward at batch B on the current device (one per SM, at
+// most B; 0 if the device cannot be queried).
+extern "C" int fused_cnn_fwd_blocks(int B) {
+  int grid = 0;
+  return fwd_grid(B, &grid) == cudaSuccess ? grid : 0;
 }
 
 // Blocks of the backward (and rows of its partials) at batch B.
@@ -1662,15 +1756,16 @@ extern "C" int fused_cnn_mma_probe(const void* a, const void* b, const float* c,
 }
 
 // Pooled features out [B, 64] of the images x [B, H, W] (bf16 = 1: x and
-// w0-w2 are bfloat16, else float). Returns a cudaError_t; never syncs.
+// w0-w2 are bfloat16, else float). work holds fused_cnn_fwd_blocks(B) x
+// fused_cnn_fwd_workspace_bytes. Returns a cudaError_t; never syncs.
 extern "C" int fused_cnn_fwd_launch(const void* x, const void* w0,
                                     const void* w1, const void* w2,
-                                    const float* rows, float* out, int B,
-                                    int H, int W, int bf16, void* stream) {
+                                    const float* rows, void* work, float* out,
+                                    int B, int H, int W, int bf16, void* stream) {
   if (B <= 0 || smem_bytes(H, W) == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch_fwd<__nv_bfloat16>(x, w0, w1, w2, rows, out, B, H, W, st)
-              : launch_fwd<float>(x, w0, w1, w2, rows, out, B, H, W, st);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, w0, w1, w2, rows, work, out, B, H, W, st)
+              : launch_fwd<float>(x, w0, w1, w2, rows, work, out, B, H, W, st);
 }
 
 // The flat float32 gradient grads [N_PARAM] of sum(pooled * dp): the

@@ -56,12 +56,14 @@ N_ROWS = sum(ROW.values())                           # 480
 N_PARAM = N_MAT + N_ROWS
 
 KERNEL = build.CudaKernel("fused_cnn", {
-    "fused_cnn_fwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    "fused_cnn_fwd_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "fused_cnn_bwd_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "fused_cnn_smem_bytes": [ctypes.c_int] * 2,
     "fused_cnn_workspace_floats": [ctypes.c_int] * 3,
+    "fused_cnn_fwd_workspace_bytes": [ctypes.c_int] * 3,
+    "fused_cnn_fwd_blocks": [ctypes.c_int],
     "fused_cnn_bwd_blocks": [ctypes.c_int],
     "fused_cnn_mma_probe": [ctypes.c_void_p] * 5})
 
@@ -212,10 +214,17 @@ def _fwd(x: torch.Tensor, ws: List[torch.Tensor]) -> torch.Tensor:
         return encode_pooled_plain(x, ws)
     lib, xc, mats, rows, is_bf16 = _kernel_args(x, ws)
     b, h, w = x.shape
+    blocks = lib.fused_cnn_fwd_blocks(b)
+    if blocks <= 0:
+        raise RuntimeError("fused_cnn_fwd_blocks: the device's SM count "
+                           "could not be read")
+    # the bf16 forward's a1, one slice per block (none in float32)
+    work = torch.empty((blocks * lib.fused_cnn_fwd_workspace_bytes(
+        h, w, is_bf16),), dtype=torch.uint8, device=x.device)
     out = torch.empty((b, 64), dtype=torch.float32, device=x.device)
     KERNEL.call("fused_cnn_fwd_launch", xc.data_ptr(),
                 *[m.data_ptr() for m in mats], rows.data_ptr(),
-                out.data_ptr(), b, h, w, is_bf16,
+                work.data_ptr(), out.data_ptr(), b, h, w, is_bf16,
                 torch.cuda.current_stream(x.device).cuda_stream)
     KERNEL.launches["fused_cnn_fwd"] += 1
     return out

@@ -69,8 +69,9 @@ Phases, each of which exits non-zero on failure:
  20. hold the fused CNN kernels against their plain versions at the
      Planning path's shapes: the forward at B = 4096 x 212 x 120 in bf16
      (the rollout's encodes), forward + backward at B = 609 (a minibatch's
-     unique frames) in bf16 (the backward on mma.sync tensor cores) and at
-     B = 64 in float32 (scalar), two backward runs bitwise equal;
+     unique frames) in bf16 (forward and backward on mma.sync tensor cores)
+     and at B = 64 in float32 (scalar), two forward runs and two backward
+     runs bitwise equal;
  21. train Planning (configs/ppo_planning.yaml, 4096 envs) for 2 epochs
      through the runner's epoch loop with the trainer
      PPO(network_kw={..., "cnn_impl": "pallas"}): every metric finite,
@@ -78,8 +79,9 @@ Phases, each of which exits non-zero on failure:
      epoch, render 1 at init), no cuDNN convolution in the profiled epoch,
      save and reload, peak device memory;
  22. time both CNN kernels and their plain versions beside their bounds
-     (the bf16 backward beside the scalar kernel's time it replaced, with
-     its workspace bytes), and the cuDNN stack (impl='auto') at the same
+     (the bf16 forward at B = 4096 and 609 and the bf16 backward beside
+     the scalar kernels' times they replaced, with their workspace bytes),
+     and the cuDNN stack (impl='auto') at the same
      shapes as a yardstick, and print one JSON line listing every ported
      kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -145,10 +147,12 @@ DEPTHGEN_ENVS, DEPTHGEN_FRAMES = 1024, 2048
 # of the activations and of g0 / g1 / g2 (measured ~2e-5 / ~1e-4 on an
 # H100)
 CNN_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
-# the time at B = 609 of the scalar bf16 backward that the tensor-core
-# kernel replaced (this script's phase 22 on an H100 80GB HBM3 at 700 W),
-# printed beside the new kernel's
+# the times of the scalar bf16 kernels that the tensor-core ones replaced
+# (this script's phase 22 on an H100 80GB HBM3 at 700 W), printed beside
+# the new kernels': the backward at B = 609, the forward at B = 4096 and
+# B = 609
 SCALAR_BWD_MS = 10.369
+SCALAR_FWD_MS = {4096: 16.865, 609: 2.675}
 CNN_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 # device kernels of cuDNN convolutions and their layout copies, none of
 # which may run on the cnn_impl='pallas' path
@@ -714,20 +718,25 @@ def cnn_inputs(fc, dev, b, dtype, seed):
 
 def cnn_vs_plain(fc, x, ws, dp, tag):
     """The fused CNN kernels vs their plain versions on the same inputs
-    (the backward only if ``dp`` is given, run twice: bitwise equal).
-    Returns (max |err| of the features, max |err| of the gradients)."""
-    out_k = fc._fwd(x, ws)
+    (the forward run twice, and the backward if ``dp`` is given: each pair
+    bitwise equal). Returns (max |err| of the features, max |err| of the
+    gradients)."""
+    out_k, out_k2 = fc._fwd(x, ws), fc._fwd(x, ws)
     out_p = fc.encode_pooled_plain(x, ws)
     torch.cuda.synchronize()
     check(tuple(out_k.shape) == (x.shape[0], 64)
           and bool(torch.isfinite(out_k).all()), f"cnn {tag}: features")
+    check(torch.equal(out_k, out_k2), f"cnn {tag}: two forward runs differ")
     scale = float(out_p.abs().max())
     err = float((out_k - out_p).abs().max())
     check(err <= CNN_FWD_TOL[x.dtype] * scale,
           f"cnn {tag}: forward max|err| {err:.3e} > "
           f"{CNN_FWD_TOL[x.dtype]:g} x {scale:.3e}")
-    msg = f"[cnn {tag}] B={x.shape[0]} {x.dtype}: forward max|err| " \
-          f"{err:.3e} (max|ref| {scale:.3e})"
+    route = "mma.sync bf16 tensor cores" if x.dtype == torch.bfloat16 \
+        else "scalar FP32"
+    msg = f"[cnn {tag}] B={x.shape[0]} {x.dtype}: forward ({route}) " \
+          f"max|err| {err:.3e} (max|ref| {scale:.3e}), two forward runs " \
+          f"bitwise equal"
     if dp is None:
         print(msg, flush=True)
         return err, None
@@ -743,8 +752,6 @@ def cnn_vs_plain(fc, x, ws, dp, tag):
               f"cnn {tag}: gradient {key} max|err| {e:.3e} > "
               f"{CNN_BWD_TOL[x.dtype]:g} x {sc:.3e}")
         g_err, worst = max(g_err, e), max(worst, e / max(sc, 1e-30))
-    route = "mma.sync bf16 tensor cores" if x.dtype == torch.bfloat16 \
-        else "scalar FP32"
     print(f"{msg}; backward ({route}) gradients max|err| {g_err:.3e} (at "
           f"most {worst:.2e} of a tensor's max|ref|), two backward runs "
           f"bitwise equal", flush=True)
@@ -854,7 +861,9 @@ def main():
           f"block with 168 records", flush=True)
     print(f"[build] fused_cnn: dynamic shared memory "
           f"{fc.KERNEL.lib().fused_cnn_smem_bytes(212, 120)} bytes per block "
-          f"at 212 x 120; backward workspace "
+          f"of the float32 kernels at 212 x 120; forward workspace "
+          f"{fc.KERNEL.lib().fused_cnn_fwd_workspace_bytes(212, 120, 1)} "
+          f"bytes per block in bf16; backward workspace "
           f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120, 1)} "
           f"bytes per block in bf16, "
           f"{4 * fc.KERNEL.lib().fused_cnn_workspace_floats(212, 120, 0)} in "
@@ -1351,9 +1360,18 @@ def main():
           f"ms bf16, {cnn_bound(fc, x6, True, PEAK_FP32)[0]:.4f} ms FP32; "
           f"workspace {work_b} bytes per block x "
           f"{fc.KERNEL.lib().fused_cnn_bwd_blocks(609)} blocks", flush=True)
-    fwd609_ms = cuda_time_ms(lambda: fc._fwd(x6, ws6))
-    print(f"[time] fused_cnn_fwd B=609 bf16: kernel {fwd609_ms:.3f} ms "
-          f"(bound {cnn_bound(fc, x6, False)[0]:.4f})", flush=True)
+    fwd_ms = {4096: times["fused_cnn_fwd"][0],
+              609: cuda_time_ms(lambda: fc._fwd(x6, ws6))}
+    for b, x in ((4096, x4), (609, x6)):
+        blocks = fc.KERNEL.lib().fused_cnn_fwd_blocks(b)
+        work_f = fc.KERNEL.lib().fused_cnn_fwd_workspace_bytes(212, 120, 1)
+        print(f"[time] fused_cnn_fwd B={b} bf16 on mma.sync: kernel "
+              f"{fwd_ms[b]:.3f} ms beside {SCALAR_FWD_MS[b]} ms of the scalar "
+              f"kernel it replaced (same card type); bound "
+              f"{cnn_bound(fc, x, False)[0]:.4f} ms bf16, "
+              f"{cnn_bound(fc, x, False, PEAK_FP32)[0]:.4f} ms FP32; a1 "
+              f"workspace {work_f} bytes per block x {blocks} blocks",
+              flush=True)
     # the encoders as the trainer calls them, fused and cuDNN (several
     # library calls: a yardstick, not library_ms)
     for impl in ("pallas", "auto"):

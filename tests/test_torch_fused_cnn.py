@@ -298,8 +298,10 @@ def test_kernel_source_matches_plain_on_cpu(emulated_kernels, dtype, shape):
     """The forward, backward and reduction kernels of csrc/fused_cnn.cu,
     run on the CPU through the emulation header, against the plain
     versions, at chip_smoke.py's tolerances (features 2e-5 / 1e-3 and
-    gradients 2e-4 / 1e-2 of max|ref| in float32 / bf16). B = 3 on the
-    emulated two-SM card makes the forward's blocks walk two images."""
+    gradients 2e-4 / 1e-2 of max|ref| in float32 / bf16). bf16 runs the
+    tensor-core forward and backward (mma.sync emulated), float32 the
+    scalar ones. B = 3 on the emulated two-SM card makes a forward block
+    walk two images (in bf16 reusing its a1 workspace)."""
     lib, tdt = emulated_kernels, DTYPES[dtype][0]
     b, h, w = shape
     rng = np.random.default_rng(21)
@@ -317,9 +319,15 @@ def test_kernel_source_matches_plain_on_cpu(emulated_kernels, dtype, shape):
     assert lib.fused_cnn_smem_bytes(h, w) > 0
 
     out = torch.empty((b, 64))
+    fwd_blocks = lib.fused_cnn_fwd_blocks(b)
+    assert fwd_blocks == min(b, 2)                      # the emulated SMs
+    fwd_work = torch.empty(fwd_blocks * lib.fused_cnn_fwd_workspace_bytes(
+        h, w, is_bf16), dtype=torch.uint8)
+    assert fwd_work.numel() == (fwd_blocks * (h // 4) * (w // 4) * 32 * 2
+                                if is_bf16 else 0)
     assert lib.fused_cnn_fwd_launch(
         x.data_ptr(), *[m.data_ptr() for m in mats], rows.data_ptr(),
-        out.data_ptr(), b, h, w, is_bf16, None) == 0
+        fwd_work.data_ptr(), out.data_ptr(), b, h, w, is_bf16, None) == 0
     blocks = lib.fused_cnn_bwd_blocks(b)
     work = torch.empty(blocks * lib.fused_cnn_workspace_floats(h, w, is_bf16))
     part = torch.empty((blocks, tfc.N_PARAM))

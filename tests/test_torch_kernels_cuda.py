@@ -228,6 +228,26 @@ def test_fused_cnn_kernels_match_plain(device, b, h, w, dtype):
         assert float((a - r).abs().max()) <= tol, key
 
 
+@pytest.mark.parametrize("b,h,w", [(133, 212, 120), (5, 28, 20)],
+                         ids=["planning-133", "ragged"])
+def test_fused_cnn_bf16_forward_repeats_bitwise(device, b, h, w):
+    """The bf16 forward on mma.sync: two runs agree to the bit (the pool
+    is summed in a fixed order, no atomics) and match the plain version
+    within 1e-3 of max|ref|. B = 133 on a 132-SM card makes one block
+    take two images through its a1 workspace."""
+    from airgym_tpu_torch.experiments import fused_cnn as fc
+    x, ws, _ = _cnn_inputs(device, b, h, w, torch.bfloat16, seed=6)
+    before = fc.KERNEL.launches["fused_cnn_fwd"]
+    out_k, out_k2 = fc._fwd(x, ws), fc._fwd(x, ws)
+    assert fc.KERNEL.launches["fused_cnn_fwd"] == before + 2
+    out_p = fc.encode_pooled_plain(x, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_k2)
+    assert bool(torch.isfinite(out_k).all())
+    scale = float(out_p.abs().max())
+    assert float((out_k - out_p).abs().max()) <= 1e-3 * scale
+
+
 def test_mma_16816_lane_layout(device):
     """One warp of mma_bf16.cuh's m16n8k16 bf16 product (csrc/fused_cnn.cu's
     probe) against a float64 product of random bf16 tiles: a wrong lane
