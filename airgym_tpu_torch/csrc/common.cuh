@@ -8,7 +8,9 @@
 #pragma once
 
 #include <cstdint>
+#ifndef AIRGYM_CUDA_EMU
 #include <cuda_runtime.h>
+#endif
 
 namespace airgym {
 
@@ -110,8 +112,15 @@ __device__ __forceinline__ float poly_acos(float x) {
 
 }  // namespace airgym
 
+#ifndef AIRGYM_CUDA_EMU
 // Each shared library exports its own error-string lookup for ctypes.
 #define AIRGYM_EXPORT_ERROR_STRING                                  \
   extern "C" const char* airgym_error_string(int err) {             \
     return cudaGetErrorString(static_cast<cudaError_t>(err));      \
   }
+// The two CUDA-only constructs of an ordinary kernel, so that a source
+// written with them also compiles as C++ against cuda_emu.h
+#define AIRGYM_DYN_SMEM(name) extern __shared__ __align__(16) float name[]
+#define AIRGYM_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#endif

@@ -1,8 +1,10 @@
 // Test builds only, never part of a card build: the subset of CUDA that
-// fused_cnn.cu (with mma_bf16.cuh) and fused_update.cu use, emulated on
-// the CPU, so the kernel sources themselves can be compiled with g++ and
-// held against their plain versions where there is no card
-// (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py):
+// fused_cnn.cu (with mma_bf16.cuh), fused_update.cu and fused_rollout.cu
+// (with quad_step.cuh and common.cuh) use, emulated on the CPU, so the
+// kernel sources themselves can be compiled with g++ and held against
+// their plain versions where there is no card
+// (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py,
+// tests/test_torch_fused_rollout.py):
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -ffp-contract=off -include cuda_emu.h
 //       -x c++ fused_cnn.cu -o libfused_cnn_emu.so -lpthread
@@ -30,6 +32,7 @@
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <math.h>   // sincosf (glibc)
 #include <thread>
 #include <vector>
 
@@ -63,7 +66,8 @@ inline thread_local EmuWarp* emu_warp = nullptr;
 template <class T> inline T __ldcg(const T* p) { return *p; }
 
 // the block's dynamic shared memory, NaN-filled by the launch
-#define FUSED_CNN_DYN_SMEM(name) float* name = emu_dyn_smem
+#define AIRGYM_DYN_SMEM(name) float* name = emu_dyn_smem
+#define FUSED_CNN_DYN_SMEM(name) AIRGYM_DYN_SMEM(name)
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
@@ -83,6 +87,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {(uint16_t)(u >> 16)};
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 
 // a warp shuffle: each lane gets the value of lane ^ m
 inline float __shfl_xor_sync(unsigned, float v, int m) {
@@ -175,8 +180,9 @@ void emu_launch(int grid, int block, size_t smem_bytes, F body) {
     for (auto& th : threads) th.join();
   }
 }
-#define FUSED_CNN_LAUNCH(kernel, grid, block, smem, stream, ...) \
+#define AIRGYM_LAUNCH(kernel, grid, block, smem, stream, ...) \
   emu_launch(grid, block, smem, [&] { kernel(__VA_ARGS__); })
+#define FUSED_CNN_LAUNCH AIRGYM_LAUNCH
 
 // all grid x block threads at once; returns cudaSuccess
 template <class F>

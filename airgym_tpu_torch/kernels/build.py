@@ -95,14 +95,17 @@ class CudaKernel:
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.so_path()))
-            for fn, argtypes in self.entry_points.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.airgym_error_string.argtypes = [ctypes.c_int]
-            lib.airgym_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._bind(self.so_path())
         return self._lib
+
+    def _bind(self, path) -> None:
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in self.entry_points.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.airgym_error_string.argtypes = [ctypes.c_int]
+        lib.airgym_error_string.restype = ctypes.c_char_p
+        self._lib = lib
 
     def call(self, fn: str, *args) -> None:
         lib = self.lib()
@@ -110,6 +113,24 @@ class CudaKernel:
         if err != 0:
             msg = lib.airgym_error_string(err).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err} ({msg})")
+
+
+def build_emulated(kernel: CudaKernel, out: Path) -> CudaKernel:
+    """Tests only: ``kernel``'s source compiled for the CPU with g++ into
+    ``out`` against ``csrc/cuda_emu.h``, which emulates the CUDA the
+    port's kernels use (one std::thread per CUDA thread), bound as a new
+    CudaKernel with the same entry points. Raises without g++."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the emulated build compiles the "
+                           "kernel source for the CPU")
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-ffp-contract=off", "-include", str(CSRC / "cuda_emu.h"),
+                    "-x", "c++", str(kernel.source), "-o", str(out),
+                    "-lpthread"], check=True, capture_output=True, timeout=300)
+    emu = CudaKernel(kernel.name, kernel.entry_points)
+    emu._bind(out)
+    return emu
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

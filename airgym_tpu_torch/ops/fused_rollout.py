@@ -47,11 +47,13 @@ _TASK_MAX_LEN = {"hovering": fhov._HOVER_MAX_LEN, "balloon": 800,
                  "tracking": 3600}
 _TASK_ID = {"hovering": 0, "balloon": 1, "tracking": 2}
 
-KERNEL = build.CudaKernel("fused_rollout", {"fused_rollout_launch": [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p]})
+KERNEL = build.CudaKernel("fused_rollout", {
+    "fused_rollout_launch": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p],
+    "fused_rollout_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
 
 
 def rec_len(task: str = "hovering") -> int:
@@ -146,22 +148,37 @@ def rollout_fused_policy(packed: torch.Tensor, pack: PolicyPack, seed: int,
         return rollout_fused_policy_plain(packed, pack, seed, steps,
                                           obs_noise=obs_noise, task=task,
                                           motor_alpha=motor_alpha)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    return _kernel_rollout(KERNEL, stream, packed, pack, seed, steps,
+                           obs_noise, task, motor_alpha)
+
+
+def _kernel_rollout(kernel, stream, packed, pack, seed, steps, obs_noise,
+                    task, motor_alpha):
+    """One launch of ``kernel`` on ``stream``, its outputs on ``packed``'s
+    device (a CPU build of the source takes CPU tensors and no stream)."""
     n = packed.shape[1]
     s_in = packed.contiguous()
     weights = flat_policy(pack)
     out = torch.empty_like(s_in)
     rec = torch.empty((steps, rec_len(task), n), dtype=torch.float32,
                       device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    KERNEL.call("fused_rollout_launch", _TASK_ID[task], s_in.data_ptr(),
+    kernel.call("fused_rollout_launch", _TASK_ID[task], s_in.data_ptr(),
                 weights.data_ptr(), out.data_ptr(), rec.data_ptr(), n,
                 steps, int(seed) & 0xFFFFFFFF, int(bool(obs_noise)),
                 float(motor_alpha), float(1.0 - motor_alpha),
                 int(motor_alpha > 0.0), stream)
-    KERNEL.launches[task] += 1
+    kernel.launches[task] += 1
     return out, rec
 
 
+def launch_shape(task: str, n: int) -> dict:
+    """The kernel's launch at n envs on the current card: envs and
+    threads per block, blocks, resident blocks per SM (the occupancy
+    calculator's) and dynamic shared memory bytes per block."""
+    out = (ctypes.c_int * 5)()
+    KERNEL.call("fused_rollout_shape", _TASK_ID[task], n, out)
+    return dict(zip(("envs", "threads", "blocks", "per_sm", "smem"), out))
 
 
 def _elu(z):

@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
   2. build every CUDA kernel from csrc/ with nvcc (one process per source,
      started together) and print each kernel's registers and spills;
   3. hold the Hovering rollout kernel against its plain PyTorch version at
-     the main-path shape (4096 envs x 24 steps, obs noise on);
+     the main-path shape (4096 envs x 24 steps, obs noise on), two kernel
+     runs on the same inputs bitwise equal;
   4. hold the update kernel (18 features) against its plain version at
      the main-path shape (B = 98,304, minibatch 2048, 48 minibatches,
      5 mini-epochs: 240 Adam steps in one cooperative launch), two kernel
@@ -20,15 +21,19 @@ Phases, each of which exits non-zero on failure:
      reload the checkpoint;
   6. time each kernel and its plain version with CUDA events, the update
      kernel's persistent grid G printed beside its time and bound, and the
-     update once more with G capped at half;
+     update once more with G capped at half; the rollout's launch shape
+     (envs and threads per block, blocks, resident blocks per SM) beside
+     its time, and the split of its blocks' cycles between the env phases
+     and the MLP (a second build of the source with
+     -DAIRGYM_ROLLOUT_CLOCKS);
   7. profile one steady epoch (device busy share, device time by kernel,
      exactly one update kernel);
   8. hold the Balloon (4096 x 32) and Tracking (4096 x 24) rollout
      kernels against their plain versions, with resets, time-outs and
-     balloon hits in the window, the update kernel at 18 features against
-     its plain version at Balloon's shape (B = 131,072, 64 minibatches)
-     and at 48 features at B = 98,304, each with two bitwise-equal kernel
-     runs;
+     balloon hits in the window, two kernel runs bitwise equal, the update
+     kernel at 18 features against its plain version at Balloon's shape
+     (B = 131,072, 64 minibatches) and at 48 features at B = 98,304, each
+     with two bitwise-equal kernel runs;
   9. hold the env-only Hovering kernel against its plain version at 4096
      envs x 64 steps with resets, then drive it once at 131,072 envs x 64
      (counters set to 0 before, read after) and hold that run against the
@@ -39,7 +44,8 @@ Phases, each of which exits non-zero on failure:
      count 320 / 240 per epoch), save and reload each, and profile one
      epoch each (exactly one update kernel);
  11. time the Balloon / Tracking / env-only kernels and the 48-feature
-     update (with its G) and their plain versions;
+     update (with its G) and their plain versions, the Balloon / Tracking
+     rollouts with their launch shapes and cycle split as in phase 6;
  12. hold the fused render + post-process kernel against its plain
      version: at Planning's full shape (4096 envs, 212 x 120, 40 trees, a
      goal ball and the ground, culled at 4.5 m, after some env steps), on
@@ -86,6 +92,7 @@ Phases, each of which exits non-zero on failure:
      kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import ctypes
 import json
 import math
 import os
@@ -231,10 +238,17 @@ def rollout_vs_plain(fr, packed, pack, seed, steps, task, alpha=0.0):
     out_k, rec_k = fr.rollout_fused_policy(packed, pack, seed, steps,
                                            obs_noise=True, task=task,
                                            motor_alpha=alpha)
+    out_k2, rec_k2 = fr.rollout_fused_policy(packed, pack, seed, steps,
+                                             obs_noise=True, task=task,
+                                             motor_alpha=alpha)
     out_p, rec_p = fr.rollout_fused_policy_plain(packed, pack, seed, steps,
                                                  obs_noise=True, task=task,
                                                  motor_alpha=alpha)
     torch.cuda.synchronize()
+    check(torch.equal(rec_k.view(torch.int32), rec_k2.view(torch.int32))
+          and torch.equal(out_k.view(torch.int32), out_k2.view(torch.int32)),
+          f"{task} rollout: two kernel runs on the same inputs differ "
+          f"(alpha={alpha})")
     obs = fr._TASK_OBS[task]
     fl = slice(obs + 11, obs + 13)
     flags_k, flags_p = rec_k[:, fl], rec_p[:, fl]
@@ -253,11 +267,38 @@ def rollout_vs_plain(fr, packed, pack, seed, steps, task, alpha=0.0):
         else 0
     print(f"[rollout {task}] alpha={alpha} {packed.shape[1]}x{steps}: "
           f"max|rec err| {err_rec:.3e} max|state err| {err_st:.3e} resets "
-          f"{n_reset} timeouts {n_timeout} hits {n_hit}", flush=True)
+          f"{n_reset} timeouts {n_timeout} hits {n_hit}; two kernel runs "
+          f"bitwise equal", flush=True)
     check(err_rec <= ROLLOUT_ATOL and err_st <= ROLLOUT_ATOL,
           f"{task} rollout kernel disagrees with its plain version beyond "
           f"atol {ROLLOUT_ATOL}")
     return max(err_rec, err_st), n_reset, n_timeout, n_hit
+
+
+def rollout_shape_and_split(fr, fr_clk, task, packed, pack, seed, steps,
+                            times):
+    """Phases 6 and 11: the rollout's launch shape beside its time, plain
+    time and bound, and where a block's cycles go (thread 0 of every
+    block, summed: (a) the observation, (b) + (c) the MLP and heads, (d)
+    the env step), from the build with -DAIRGYM_ROLLOUT_CLOCKS."""
+    k_ms, p_ms, b_ms, b_by = times[task]
+    sh = fr.launch_shape(task, packed.shape[1])
+    cyc = (ctypes.c_ulonglong * 3)()
+    fr_clk.call("fused_rollout_phase_cycles", cyc)          # zeroes them
+    fr._kernel_rollout(fr_clk, torch.cuda.current_stream().cuda_stream,
+                       packed, pack, seed, steps, True, task, 0.0)
+    torch.cuda.synchronize()
+    fr_clk.call("fused_rollout_phase_cycles", cyc)
+    total = max(sum(cyc), 1)
+    per_step = [c / (sh["blocks"] * max(steps, 1)) for c in cyc]
+    print(f"[time] {task}: kernel {k_ms:.3f} ms (E={sh['envs']} envs x "
+          f"{sh['threads']} threads per block, {sh['blocks']} blocks, "
+          f"{sh['per_sm']} per SM, {sh['smem']} B shared; plain "
+          f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})", flush=True)
+    print(f"[time] {task}: a block's cycles per step: observation "
+          f"{per_step[0]:.0f} ({100 * cyc[0] / total:.1f}%), MLP + heads "
+          f"{per_step[1]:.0f} ({100 * cyc[1] / total:.1f}%), env step "
+          f"{per_step[2]:.0f} ({100 * cyc[2] / total:.1f}%)", flush=True)
 
 
 def env_vs_plain(fh, packed, act, seed, steps, out_k, rew_k):
@@ -846,7 +887,12 @@ def main():
     phase(2)
     kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL, rc.DEPTH_KERNEL,
                fc.KERNEL]
-    secs = build.build_all(kernels)
+    # the rollout source once more with its phase clocks (phases 6 and 11)
+    fr_clk = build.CudaKernel(
+        "fused_rollout", {**fr.KERNEL.entry_points,
+                          "fused_rollout_phase_cycles": [ctypes.c_void_p]},
+        extra_flags=["-DAIRGYM_ROLLOUT_CLOCKS"])
+    secs = build.build_all(kernels + [fr_clk])
     print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
     for k in kernels:
         for line in k.build_log.splitlines():
@@ -946,12 +992,12 @@ def main():
         cuda_time_ms(lambda: fu.fused_update_plain(*upd_args, **upd_kw),
                      PLAIN_REPS),
         *update_bound(18, B, me))
-    for key in ("hovering", "obs18"):
-        k_ms, p_ms, b_ms, b_by = times[key]
-        grid = (f"G={fu.grid_size(18, dev)} blocks, "
-                if key == "obs18" else "")
-        print(f"[time] {key}: kernel {k_ms:.3f} ms ({grid}plain {p_ms:.3f}, "
-              f"bound {b_ms:.4f} by {b_by})", flush=True)
+    rollout_shape_and_split(fr, fr_clk, "hovering", packed, pack, seed, steps,
+                            times)
+    k_ms, p_ms, b_ms, b_by = times["obs18"]
+    print(f"[time] obs18: kernel {k_ms:.3f} ms (G={fu.grid_size(18, dev)} "
+          f"blocks, plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by})",
+          flush=True)
     # the persistent grid capped at half the default, for comparison
     cap = fu.GRID_CAP
     fu.GRID_CAP = cap // 2
@@ -1097,7 +1143,10 @@ def main():
                      PLAIN_REPS),
         *bound_ms(ENV_STEP_OPS * ENV_N * ENV_STEPS,
                   4.0 * (2 * fh._F * ENV_N + ENV_N + 4)))
-    for key in ("balloon", "tracking", "obs48", "env"):
+    for name, (p, t_pack, steps_t) in task_inputs.items():
+        rollout_shape_and_split(fr, fr_clk, name, p, t_pack, seed, steps_t,
+                                times)
+    for key in ("obs48", "env"):
         k_ms, p_ms, b_ms, b_by = times[key]
         grid = (f"G={fu.grid_size(48, dev)} blocks, "
                 if key == "obs48" else "")

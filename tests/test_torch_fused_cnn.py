@@ -16,10 +16,8 @@ of its own size (two bf16 ulps: dw0-dw2 are returned in bf16) plus 1e-3 *
 max|ref| (a flipped rounding of g0 / g1 / g2 feeding a sum). The BN folds
 agree within 5e-7: XLA's CPU rsqrt is not correctly rounded (1-2 ulp).
 """
-import ctypes
 import pathlib
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +28,7 @@ import torch
 from airgym_tpu.experiments import fused_cnn as jfc
 from airgym_tpu.models import actor_critic as jac
 from airgym_tpu_torch.experiments import fused_cnn as tfc
+from airgym_tpu_torch.kernels import build
 from airgym_tpu_torch.models import actor_critic as tac
 from airgym_tpu_torch.rl import checkpoint as tckpt
 
@@ -274,20 +273,11 @@ def test_trainer_passes_cnn_impl():
 def emulated_kernels(tmp_path_factory):
     """csrc/fused_cnn.cu compiled with g++ against csrc/cuda_emu.h (one
     std::thread per CUDA thread), bound with the wrapper's signatures."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("emu") / "libfused_cnn_emu.so"
-    header = tfc.KERNEL.source.parent / "cuda_emu.h"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-ffp-contract=off", "-include", str(header), "-x", "c++",
-                    str(tfc.KERNEL.source), "-o", str(out), "-lpthread"],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in tfc.KERNEL.entry_points.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    return build.build_emulated(
+        tfc.KERNEL, tmp_path_factory.mktemp("emu") / "libfused_cnn_emu.so"
+    ).lib()
 
 
 @pytest.mark.parametrize("dtype,shape", [("f32", (3, 28, 20)),

@@ -5,24 +5,37 @@ The hash RNG is reproducible, so obs noise and resets stay on: the state
 is seeded with envs about to time out and envs about to leave the
 flight box. One 1024-env tile, 4 steps. Record and state within 1e-4
 (float32, other summation orders in the MLP); done / timeout flags
-equal."""
+equal.
+
+The kernel source itself, csrc/fused_rollout.cu, is also compiled for the
+CPU against csrc/cuda_emu.h (blocks of 256 std::threads, run one after
+another) and held against the plain version at the card's gates."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from airgym_tpu.ops import fused_rollout as jfr
+from airgym_tpu_torch.kernels import build
 from airgym_tpu_torch.ops import fused_rollout as tfr
 
 N, H = 1024, 4
-SHAPES = [(64, 18), (64, 1), (128, 64), (128, 1), (64, 128), (64, 1),
-          (4, 64), (4, 1), (1, 64), (1, 1), (4, 1), (18, 1), (18, 1)]
 
 
-def make_inputs(seed=0):
+def pack_shapes(obs):
+    return [(64, obs), (64, 1), (128, 64), (128, 1), (64, 128), (64, 1),
+            (4, 64), (4, 1), (1, 64), (1, 1), (4, 1), (obs, 1), (obs, 1)]
+
+
+SHAPES = pack_shapes(18)
+
+
+def make_inputs(seed=0, obs=18):
     rng = np.random.default_rng(seed)
     pack = [rng.normal(0, 1 / np.sqrt(s[1]) if s[1] > 1 else 0.1,
-                       s).astype(np.float32) for s in SHAPES]
+                       s).astype(np.float32) for s in pack_shapes(obs)]
     pack[10] = np.full((4, 1), -0.5, np.float32)             # logstd
     pack[12] = (np.abs(pack[12]) + 0.5).astype(np.float32)   # obs istd
     st = np.zeros((40, N), np.float32)
@@ -99,3 +112,83 @@ def test_kernel_build_cache_key_and_missing_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         build.CudaKernel("fused_rollout", {}).lib()
+
+
+@pytest.fixture(scope="module")
+def emulated_kernel(tmp_path_factory):
+    """csrc/fused_rollout.cu compiled with g++ against csrc/cuda_emu.h (one
+    std::thread per CUDA thread, a std::barrier per block), as a
+    CudaKernel with the wrapper's entry points."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    return build.build_emulated(
+        tfr.KERNEL, tmp_path_factory.mktemp("emu") / "libfused_rollout_emu.so")
+
+
+def make_task_case(task, seed):
+    """make_inputs at the task's width, with envs 0:50 one step from the
+    time-out and placed to survive it, Balloon's balloons (hits at envs
+    64:96) and pre_root_pos, and rows the task does not own filled with
+    noise and some NaN."""
+    obs = tfr._TASK_OBS[task]
+    st, pack = make_inputs(seed, obs)
+    rng = np.random.default_rng(seed + 100)
+    max_len = tfr._TASK_MAX_LEN[task]
+    st[19, :50] = max_len - 2
+    own = 35 if task == "balloon" else 29
+    if task == "balloon":
+        st[29] = 2.5 + 0.5 * rng.uniform(-1, 1, N)
+        st[30] = 2.0 * rng.uniform(-1, 1, N)
+        st[31] = 1.0 + 0.3 * rng.uniform(-1, 1, N)
+        st[2, :50], st[7, :50] = 1.0, 0.3       # level, flying forward
+        st[29:32, :50] = st[0:3, :50] + np.array([[1.0], [0.0], [0.0]])
+        st[29:32, 64:96] = st[0:3, 64:96] + 0.05            # hits
+        st[32:35] = st[0:3]
+    if task == "tracking":                      # on the reference point
+        tr = np.float32((max_len - 1) * 0.0025)
+        den = 1.0 + np.cos(tr) ** 2
+        st[0:3, :50] = np.array([[3.0 * np.sin(tr) / den],
+                                 [3.0 * np.sin(tr) * np.cos(tr) / den],
+                                 [1.0]])
+    st[own:] = rng.normal(0, 1, (40 - own, N))
+    st[39, :8] = np.nan
+    return st, pack, own
+
+
+@pytest.mark.parametrize("task,motor_alpha", [("hovering", 0.6),
+                                              ("balloon", 0.0),
+                                              ("tracking", 0.6)])
+def test_kernel_source_matches_plain_on_cpu(emulated_kernel, task,
+                                            motor_alpha):
+    """The kernel on the emulated card (64 blocks of 16 envs), 3 steps
+    with resets, time-outs and (Balloon) hits, against the plain version:
+    record and state within 1e-4, done / timeout flags equal, rows the
+    task does not own passed through bit for bit; two runs bitwise
+    equal."""
+    kernel = emulated_kernel
+    st, pack, own = make_task_case(task, 7)
+    packed = torch.from_numpy(st)
+    tpack = tfr.PolicyPack(*map(torch.from_numpy, pack))
+    seed, steps = 2024, 3
+    before = kernel.launches[task]
+    runs = [tfr._kernel_rollout(kernel, None, packed, tpack, seed, steps,
+                                True, task, motor_alpha) for _ in range(2)]
+    assert kernel.launches[task] == before + 2
+    ref_out, ref_rec = tfr.rollout_fused_policy_plain(
+        packed, tpack, seed, steps, obs_noise=True, task=task,
+        motor_alpha=motor_alpha)
+    out, rec = runs[0]
+    obs = tfr._TASK_OBS[task]
+    assert rec.shape == ref_rec.shape == (steps, obs + 13, N)
+    flags = slice(obs + 11, obs + 13)
+    assert torch.equal(rec[:, flags], ref_rec[:, flags])
+    assert ref_rec[:, obs + 11].sum() >= 50      # resets
+    assert ref_rec[:, obs + 12].sum() >= 40      # time-outs
+    if task == "balloon":
+        assert (ref_rec[:, obs + 10] > 400.0).sum() >= 16      # hits
+    torch.testing.assert_close(rec, ref_rec, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[:own], ref_out[:own], atol=1e-4, rtol=0)
+    assert torch.equal(out[own:].view(torch.int32),
+                       packed[own:].view(torch.int32))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -12,7 +12,6 @@ within 2e-3 * max|ref| + 1e-5 per tensor, lr to rtol 1e-6, count equal,
 metrics to rtol 5e-3 / atol 5e-4."""
 import ctypes
 import shutil
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,24 +139,10 @@ def emulated_kernel(tmp_path_factory):
     """csrc/fused_update.cu compiled with g++ against csrc/cuda_emu.h (one
     std::thread per CUDA thread, the grid barrier over all of them), as a
     CudaKernel with the wrapper's entry points."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("emu") / "libfused_update_emu.so"
-    header = tfu.KERNEL.source.parent / "cuda_emu.h"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-ffp-contract=off", "-include", str(header), "-x", "c++",
-                    str(tfu.KERNEL.source), "-o", str(out), "-lpthread"],
-                   check=True, capture_output=True, timeout=300)
-    kernel = build.CudaKernel("fused_update_emu", tfu.KERNEL.entry_points)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in kernel.entry_points.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.airgym_error_string.argtypes = [ctypes.c_int]
-    lib.airgym_error_string.restype = ctypes.c_char_p
-    kernel._lib = lib
-    return kernel
+    return build.build_emulated(
+        tfu.KERNEL, tmp_path_factory.mktemp("emu") / "libfused_update_emu.so")
 
 
 @pytest.mark.parametrize("obs_dim", [18, 48])
