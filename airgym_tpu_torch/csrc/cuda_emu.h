@@ -1,10 +1,12 @@
 // Test builds only, never part of a card build: the subset of CUDA that
-// fused_cnn.cu (with mma_bf16.cuh), fused_update.cu and fused_rollout.cu
-// (with quad_step.cuh and common.cuh) use, emulated on the CPU, so the
+// fused_cnn.cu (with mma_bf16.cuh), fused_update.cu, fused_rollout.cu
+// (with quad_step.cuh and common.cuh), render_process.cu and
+// render_depth.cu (with raycast.cuh) use, emulated on the CPU, so the
 // kernel sources themselves can be compiled with g++ and held against
 // their plain versions where there is no card
 // (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py,
-// tests/test_torch_fused_rollout.py):
+// tests/test_torch_fused_rollout.py, tests/test_torch_render.py,
+// tests/test_torch_render_depth.py):
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -ffp-contract=off -include cuda_emu.h
 //       -x c++ fused_cnn.cu -o libfused_cnn_emu.so -lpthread
@@ -18,6 +20,8 @@
 // NaN), and the grid barrier is one std::barrier over all of them. bf16 rounds to nearest even
 // on the bits. It checks indexing, barriers and rounding points, not speed
 // or the GPU compiler.
+//
+// A warp's vote (__ballot_sync) goes through its exchange buffer too.
 //
 // mma_bf16.cuh's warp-level product (emu_mma_16816): each lane writes its
 // fragments to its warp's exchange buffer, waits at the warp's barrier of
@@ -59,6 +63,7 @@ struct EmuWarp {
   std::barrier<> bar{32};
   uint32_t a[32][4], b[32][2];
   float x[32];
+  uint32_t vote[32];
 };
 inline thread_local EmuWarp* emu_warp = nullptr;
 #define AIRGYM_COOP_DYN_SMEM(name) float* name = emu_dyn_smem
@@ -70,6 +75,12 @@ template <class T> inline T __ldcg(const T* p) { return *p; }
 #define FUSED_CNN_DYN_SMEM(name) AIRGYM_DYN_SMEM(name)
 
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 struct float2 { float x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct __nv_bfloat16 { uint16_t bits; };
@@ -98,6 +109,18 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   const float r = w.x[l ^ m];
   w.bar.arrive_and_wait();
   return r;
+}
+
+// a warp vote: bit l of the result is lane l's predicate
+inline unsigned __ballot_sync(unsigned, int pred) {
+  EmuWarp& w = *emu_warp;
+  const int l = threadIdx.x & 31;
+  w.vote[l] = pred ? 1u : 0u;
+  w.bar.arrive_and_wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= w.vote[i] << i;
+  w.bar.arrive_and_wait();
+  return m;
 }
 
 // mma.sync m16n8k16 row.col f32.bf16.bf16.f32 (see the header note)

@@ -62,7 +62,10 @@ class CudaKernel:
 
     def so_path(self) -> Path:
         h = hashlib.sha256(" ".join(self.flags()).encode())
-        for src in [self.source] + sorted(CSRC.glob("*.cuh")):
+        # the headers beside the source, which its #include finds first,
+        # and the tree's
+        heads = set(self.source.parent.glob("*.cuh")) | set(CSRC.glob("*.cuh"))
+        for src in [self.source] + sorted(heads):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"

@@ -60,7 +60,7 @@ DEPTH_KERNEL = build.CudaKernel(
     "render_depth",
     {"render_depth_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-     "render_depth_smem_bytes": [ctypes.c_int]},
+     "render_depth_smem_bytes": [ctypes.c_int] * 3},
     extra_flags=["-fmad=false"])
 
 
@@ -356,22 +356,29 @@ def render_depth_packed(inp: RenderInputs) -> torch.Tensor:
     _check(inp, noise=False)
     if not inp.origins.is_cuda:
         return render_depth_packed_plain(inp)
+    return launch_depth(DEPTH_KERNEL, inp,
+                        torch.cuda.current_stream(inp.origins.device)
+                        .cuda_stream)
+
+
+def launch_depth(kernel: build.CudaKernel, inp: RenderInputs,
+                 stream) -> torch.Tensor:
+    """One launch of ``kernel`` (a build of ``csrc/render_depth.cu``) on
+    checked inputs -> [N, W, H]; counts it in ``kernel.launches``."""
     cfg = inp.cfg
     n, p = inp.prims.shape[0], inp.prims.shape[1]
     W, H = cfg.width, cfg.height
-    lib = DEPTH_KERNEL.lib()
-    if lib.render_depth_smem_bytes(p) == 0:
+    if kernel.lib().render_depth_smem_bytes(p, W, H) == 0:
         raise ValueError(f"{p} records exceed one block's shared memory")
     out = torch.empty((n, W, H), dtype=torch.float32,
                       device=inp.origins.device)
     tan_h, tan_v = _tans(cfg)
     args = [x.contiguous() for x in (inp.origins, inp.rots, inp.prims,
                                       inp.live)]
-    DEPTH_KERNEL.call("render_depth_launch", *[x.data_ptr() for x in args],
-                      out.data_ptr(), n, p, *inp.counts, W, H, tan_h, tan_v,
-                      int(inp.ground),
-                      torch.cuda.current_stream(out.device).cuda_stream)
-    DEPTH_KERNEL.launches["render_depth"] += 1
+    kernel.call("render_depth_launch", *[x.data_ptr() for x in args],
+                out.data_ptr(), n, p, *inp.counts, W, H, tan_h, tan_v,
+                int(inp.ground), stream)
+    kernel.launches["render_depth"] += 1
     return out
 
 
@@ -384,11 +391,19 @@ def render_process_packed(inp: RenderInputs) -> torch.Tensor:
         raise ValueError(f"fused render+process requires H <= {LANES - 2}")
     if not inp.origins.is_cuda:
         return render_process_packed_plain(inp)
+    return launch_process(KERNEL, inp,
+                          torch.cuda.current_stream(inp.origins.device)
+                          .cuda_stream)
+
+
+def launch_process(kernel: build.CudaKernel, inp: RenderInputs,
+                   stream) -> torch.Tensor:
+    """One launch of ``kernel`` (a build of ``csrc/render_process.cu``)
+    on checked inputs -> [N, 1, W, H]; counts it in ``kernel.launches``."""
     cfg = inp.cfg
     n, p = inp.prims.shape[0], inp.prims.shape[1]
     W, H = cfg.width, cfg.height
-    lib = KERNEL.lib()
-    if lib.render_process_smem_bytes(p, W, H) == 0:
+    if kernel.lib().render_process_smem_bytes(p, W, H) == 0:
         raise ValueError(f"a {W} x {H} image with {p} records exceeds one "
                          f"block's shared memory")
     out = torch.empty((n, 1, W, H), dtype=torch.float32,
@@ -399,11 +414,10 @@ def render_process_packed(inp: RenderInputs) -> torch.Tensor:
     tan_h, tan_v = _tans(cfg)
     args = [x.contiguous() for x in (inp.origins, inp.rots, inp.prims,
                                       inp.live, seeds, inp.taps)]
-    KERNEL.call("render_process_launch", *[x.data_ptr() for x in args],
+    kernel.call("render_process_launch", *[x.data_ptr() for x in args],
                 out.data_ptr(), n, p, *inp.counts, W, H, tan_h, tan_v,
-                int(inp.ground), float(cfg.depth_clamp),
-                torch.cuda.current_stream(out.device).cuda_stream)
-    KERNEL.launches["render_process"] += 1
+                int(inp.ground), float(cfg.depth_clamp), stream)
+    kernel.launches["render_process"] += 1
     return out
 
 

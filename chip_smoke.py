@@ -6,7 +6,10 @@
 Phases, each of which exits non-zero on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ with nvcc (one process per source,
-     started together) and print each kernel's registers and spills;
+     started together) and print each kernel's registers and spills; the
+     two render sources once more with -DAIRGYM_RENDER_CLOCKS, and the
+     SASS instruction count of each record kind's cast body in that build
+     (cuobjdump -sass) beside the parent design's;
   3. hold the Hovering rollout kernel against its plain PyTorch version at
      the main-path shape (4096 envs x 24 steps, obs noise on), two kernel
      runs on the same inputs bitwise equal;
@@ -50,12 +53,16 @@ Phases, each of which exits non-zero on failure:
      version: at Planning's full shape (4096 envs, 212 x 120, 40 trees, a
      goal ball and the ground, culled at 4.5 m, after some env steps), on
      a one-box scene like Avoid's (too small to cull: the unguarded
-     chain) and on a 256-env scene of all four record kinds;
+     chain) and on a 256-env scene of all four record kinds; the split of
+     a block's cycles between the prepass, the cast, the two noises and
+     the blur on the Planning and box scenes (the clock build);
  13. train Planning (configs/ppo_planning.yaml, 4096 envs) for 2 epochs
      through the runner with the render counter set to 0 before and read
      after (1 launch at init, 6 per epoch), save and reload the
      checkpoint, and profile one epoch (render, convs, the rest);
- 14. time the render kernel and its plain version;
+ 14. time the render kernel and its plain version (Planning culled and
+     unculled, the box scene), the bound beside the parent design's bound
+     and the kernel beside the parent's time;
  15. hold the raw depth kernel against its plain version: at MAPlanning's
      full shape (4096 envs x 4 robots = 16,384 cameras of 212 x 120,
      after 30 env steps), at DepthGen's 1024-env scene of 168 records
@@ -71,7 +78,9 @@ Phases, each of which exits non-zero on failure:
  18. generate DepthGen's dataset at 1024 envs, 2048 frames (2 raw depth
      launches) and check every frame;
  19. time the raw depth kernel and its plain version at the MAPlanning
-     and DepthGen shapes;
+     and DepthGen shapes, the bound beside the parent design's and the
+     kernel beside the parent's time, and a block's cycles split between
+     the prepass and the cast;
  20. hold the fused CNN kernels against their plain versions at the
      Planning path's shapes: the forward at B = 4096 x 212 x 120 in bf16
      (the rollout's encodes), forward + backward at B = 609 (a minibatch's
@@ -128,14 +137,42 @@ PEAK_BYTES = 3.35e12
 # one; the hash's integer work not counted): controller ~140, physics
 # ~180, hovering reward ~150, reset float math ~110
 ENV_STEP_OPS = 580
-# FP32 operations of the render kernel, counted by hand from
-# csrc/raycast.cuh and csrc/render_process.cu (each division and square
-# root as one; the hash's integer work not counted): per pixel the ray and
-# the ground ~37 and the post-processing ~80, per pixel and record a
-# cylinder ~58, a sphere ~20, a box ~45, an annulus ~90
-RAY_OPS = 37
-RENDER_PIXEL_OPS = RAY_OPS + 80
-RENDER_RECORD_OPS = (58, 20, 45, 90)
+# FP32 operations of the two render kernels, counted by hand from
+# csrc/raycast.cuh, csrc/render_process.cu and csrc/render_depth.cu: each
+# add, multiply, division, square root, log, cosine, comparison, minimum,
+# maximum, absolute value and int-to-float conversion as one; selects,
+# negations and the hash's integer work not counted. Per pixel: the ray
+# from the ray tables (3 adds, |d|^2, 1 / sqrtf, the Newton step, the unit
+# direction) 18; the ground 5 where the scene has it; the raw depth's
+# t * inv_norm 1; render + process's clip / normalise and block maximum 5
+# and each noise 17 (two draws, Box-Muller, the clip, the maximum). Per tap
+# of the blur inside the image 2. Per pixel and cast record (a valid
+# record in a live group): cylinder 36, sphere 13, box 32, annulus 60. Per
+# cast record and env, the prepass's struct: 22, 11, 16, 30. Per env, the
+# ray tables: 11 a pixel column, 8 a pixel row.
+RAY_OPS = 18
+GROUND_OPS = 5
+DEPTH_OUT_OPS = 1
+PROCESS_PIXEL_OPS = 5 + 2 * 17
+BLUR_TAP_OPS = 2
+CAST_OPS = (36, 13, 32, 60)
+PREP_OPS = (22, 11, 16, 30)
+TABLE_OPS = (11, 8)
+# the previous design's counts (every term recomputed per pixel and
+# record): per pixel the ray and the ground 37 and the post-processing 80,
+# per pixel and live record 58 / 20 / 45 / 90; the old bound, printed
+# beside the new
+OLD_RAY_OPS = 37
+OLD_PIXEL_OPS = OLD_RAY_OPS + 80
+OLD_RECORD_OPS = (58, 20, 45, 90)
+# the previous design's kernel times (this script's phases 14 and 19 on
+# an H100 80GB HBM3 at 700 W) and its SASS counts (cuobjdump -sass of its
+# sources built with the same clocks), printed beside the redesigned
+# kernels'
+PARENT_RENDER_MS = {"culled": 10.920, "unculled": 21.446}
+PARENT_DEPTH_MS = {"maplanning": 7.312, "depthgen": 10.824}
+PARENT_CAST_SASS = {"cylinder": 231, "sphere": 81, "box": 264,
+                    "annulus": 347}
 RENDER_ATOL = 1e-5              # the JAX suite's (tests/test_fused_render.py)
 PLANNING_EPOCHS = 2
 # profiler kernel names of the CNN's cuDNN convolutions and their layout
@@ -518,18 +555,49 @@ def profile_epoch(trainer, ts, tag, groups=None, forbid=(), expect=None):
                       f"{[k[:70] for k in banned[:5]]}")
 
 
-def render_bound(inp, live_mean):
-    """(bound ms, what bounds it) of one render: the operations of the
-    records that survive culling (their mean per env), the bytes of the
-    inputs read once and the image written once."""
+def cast_records(inp):
+    """[N, 4] records each env's prepass keeps, by kind: the valid ones of
+    the groups of 8 that start below the live count."""
+    out, p = [], 0
+    for k, cnt in enumerate(inp.counts):
+        lim = torch.clamp((inp.live[:, k] + 7) // 8 * 8, max=cnt)
+        idx = torch.arange(cnt, device=inp.prims.device)
+        valid = inp.prims[:, p:p + cnt, 0] > 0.0
+        out.append((valid & (idx[None] < lim[:, None])).sum(1))
+        p += cnt
+    return torch.stack(out, 1)
+
+
+def render_ops(inp, process):
+    """FP32 operations of one render (the counts above) on these inputs:
+    the records this run's prepasses keep, the pixels, the blur's taps
+    inside the image (render + process) and each env's ray tables."""
+    n, W, H = inp.origins.shape[0], inp.cfg.width, inp.cfg.height
+    kept = cast_records(inp).to(torch.float64).sum(0).tolist()
+    per_pix = RAY_OPS + GROUND_OPS * int(inp.ground) + (
+        PROCESS_PIXEL_OPS if process else DEPTH_OUT_OPS)
+    ops = n * W * H * per_pix + n * (TABLE_OPS[0] * W + TABLE_OPS[1] * H)
+    ops += sum(c * (W * H * k + q)
+               for c, k, q in zip(kept, CAST_OPS, PREP_OPS))
+    if process:
+        ops += n * BLUR_TAP_OPS * (5 * W - 6) * (5 * H - 6)
+    return ops
+
+
+def render_bound(inp):
+    """(bound ms, what bounds it, the parent design's bound ms) of one
+    render + process: the operations above against the inputs read once
+    and the image written once."""
     n = inp.origins.shape[0]
     pix = n * inp.cfg.width * inp.cfg.height
-    ops = pix * (RENDER_PIXEL_OPS + sum(
-        c * k for c, k in zip(live_mean, RENDER_RECORD_OPS)))
     nbytes = sum(x.numel() * x.element_size() for x in (
         inp.origins, inp.rots, inp.prims, inp.live, inp.taps))
     nbytes += 4 * n + 4 * pix                # seeds as uint32, the image
-    return bound_ms(ops, nbytes)
+    live = inp.live.to(torch.float32).mean(0).tolist()
+    old = pix * (OLD_PIXEL_OPS + sum(
+        c * k for c, k in zip(live, OLD_RECORD_OPS)))
+    return (*bound_ms(render_ops(inp, True), nbytes),
+            bound_ms(old, nbytes)[0])
 
 
 def render_vs_plain(rc, inp, tag):
@@ -573,96 +641,46 @@ def render_vs_plain(rc, inp, tag):
     return float(err.max()), live
 
 
-def mixed_scene(u, n, dev):
-    """A scene of all four record kinds in front of a camera at (0, 0, 1):
-    20 cylinders (some invalid), 3 spheres, 3 boxes, 3 annuli, the ground;
-    ``u(*shape)`` draws uniforms."""
-    from airgym_tpu_torch.physics import scene as sc
-    from airgym_tpu_torch.render import depth as dr
-    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
-    ones = lambda k: torch.ones((n, k), dtype=torch.bool, device=dev)
-    cyl = sc.Cylinders(
-        center=torch.stack([9 * u(n, 20) - 3, 4 * u(n, 20) - 2,
-                            torch.full((n, 20), 1.2, device=dev)], -1),
-        axis=unit(torch.cat([0.6 * u(n, 20, 2) - 0.3,
-                             torch.ones((n, 20, 1), device=dev)], -1)),
-        half_len=0.8 + 0.8 * u(n, 20), radius=0.05 + 0.35 * u(n, 20),
-        valid=u(n, 20) > 0.1)
-    sph = sc.Spheres(center=torch.stack([0.5 + 3.5 * u(n, 3), 2 * u(n, 3) - 1,
-                                         0.6 + 0.8 * u(n, 3)], -1),
-                     radius=0.1 + 0.3 * u(n, 3), valid=ones(3))
-    boxes = sc.Boxes(center=torch.stack([1 + 3 * u(n, 3), 3 * u(n, 3) - 1.5,
-                                         0.3 + 1.2 * u(n, 3)], -1),
-                     yaw=6 * u(n, 3) - 3, half_extents=0.1 + 0.4 * u(n, 3, 3),
-                     valid=ones(3))
-    ann = sc.Annuli(center=torch.stack([1.5 + 2 * u(n, 3), 1.6 * u(n, 3) - 0.8,
-                                        0.8 + 0.4 * u(n, 3)], -1),
-                    normal=unit(torch.cat([torch.ones((n, 3, 1), device=dev),
-                                           0.8 * u(n, 3, 2) - 0.4], -1)),
-                    r_in=0.2 + 0.2 * u(n, 3), r_out=0.5 + 0.3 * u(n, 3),
-                    half_thick=0.02 + 0.08 * u(n, 3), valid=ones(3))
-    return dr.SceneForRender(cylinders=cyl, spheres=sph, boxes=boxes,
-                             annuli=ann, ground=True)
-
-
-def render_checks(envs, rc, dev):
+def render_checks(ra, rc, dev):
     """Phase 12: the render kernel at Planning's full shape (guarded),
-    on a box scene (unguarded) and on a scene of all four kinds.
-    Returns (max error, (Planning's inputs, their live records per env))."""
-    from airgym_tpu_torch.physics import scene as sc
-    from airgym_tpu_torch.render import depth as dr
-    task = envs.make_task("planning", num_envs=4096, device=dev)
-    g = torch.Generator(device=dev).manual_seed(21)
-    st = task.initial_state(g)
-    for _ in range(30):                        # the drones move and turn
-        a = torch.rand((4096, 4), generator=g, device=dev) * 1.2 - 0.6
-        a[:, 3] = -0.69 + 0.1 * a[:, 3]
-        st, _ = task.step(st, a, g, render=False)
-    root = st.core.root
-    inp = rc.prepare(task.cam_cfg, root, task.scene(st), 987654321,
-                     task.cam_cfg.depth_clamp)
+    on a box scene (unguarded) and on a scene of all four kinds
+    (kernels/render_ab.process_cases). Returns (max error, the cases)."""
+    cases = ra.process_cases(dev)
+    inp = cases["planning 4096 guarded"]
     check(inp.prims.shape[1] == 48 and inp.counts == (40, 1, 0, 0),
           f"planning scene packs as {inp.counts} in {inp.prims.shape[1]}")
-    err_p, live = render_vs_plain(rc, inp, "planning 4096 guarded")
-
-    rng = torch.Generator(device=dev).manual_seed(22)
-    u = lambda *shape: torch.rand(shape, generator=rng, device=dev)
-    n = 1024
-    box_root = root[:n].clone()
-    box_root[:, 0:3] = torch.stack([u(n) - 0.5, u(n) - 0.5, 0.8 + 0.4 * u(n)],
-                                   dim=-1)
-    box = sc.Boxes(center=torch.stack([2.0 + 2.0 * u(n), 2.0 * u(n) - 1.0,
-                                       0.3 + u(n)], dim=-1)[:, None],
-                   yaw=(6.0 * u(n) - 3.0)[:, None],
-                   half_extents=(0.2 + 0.3 * u(n, 1, 3)),
-                   valid=torch.ones((n, 1), dtype=torch.bool, device=dev))
-    inp_b = rc.prepare(task.cam_cfg, box_root,
-                       dr.SceneForRender(boxes=box, ground=True), 5, 4.5)
+    inp_b = cases["box 1024 unguarded"]
     check(inp_b.prims.shape[1] == 8 and
           bool((inp_b.live == torch.tensor([0, 0, 1, 0], device=dev)).all()),
           "the box scene must run unguarded")
-    err_b, _ = render_vs_plain(rc, inp_b, "box 1024 unguarded")
-
-    n = 256
-    mix_root = root[:n].clone()
-    mix_root[:, 0:3] = torch.tensor([0.0, 0.0, 1.0], device=dev)
-    inp_m = rc.prepare(task.cam_cfg, mix_root, mixed_scene(u, n, dev), 77,
-                       4.5)
-    err_m, _ = render_vs_plain(rc, inp_m, "mixed 256 guarded")
-    return max(err_p, err_b, err_m), (inp, live)
+    errs = [render_vs_plain(rc, x, tag)[0] for tag, x in cases.items()]
+    return max(errs), cases
 
 
-def depth_bound(inp, live_mean):
-    """(bound ms, what bounds it) of one raw depth render: the ray and the
-    ground per pixel plus the records cast (their mean per env), the
-    inputs read once and the [N, W, H] image written once."""
+def depth_bound(inp):
+    """(bound ms, what bounds it, the parent design's bound ms) of one raw
+    depth render: the operations above against the inputs read once and
+    the [N, W, H] image written once."""
     n = inp.origins.shape[0]
     pix = n * inp.cfg.width * inp.cfg.height
-    ops = pix * (RAY_OPS + sum(c * k for c, k in zip(live_mean,
-                                                     RENDER_RECORD_OPS)))
     nbytes = sum(x.numel() * x.element_size() for x in (
         inp.origins, inp.rots, inp.prims, inp.live)) + 4 * pix
-    return bound_ms(ops, nbytes)
+    live = inp.live.to(torch.float32).mean(0).tolist()
+    old = pix * (OLD_RAY_OPS + sum(c * k for c, k in zip(live,
+                                                         OLD_RECORD_OPS)))
+    return (*bound_ms(render_ops(inp, False), nbytes),
+            bound_ms(old, nbytes)[0])
+
+
+def render_split(ra, clk, inp, tag):
+    """Print where a block's cycles go on the clock build ``clk`` (one
+    run): per env and as shares of the block's time."""
+    launch = ra.LAUNCH[clk.name]
+    stream = torch.cuda.current_stream().cuda_stream
+    cyc = ra.phase_cycles(clk, lambda: launch(clk, inp, stream))
+    check(cyc is not None and sum(cyc) > 0, f"{clk.name} {tag}: no clocks")
+    print(f"[time] {clk.name} {tag}: a block's cycles per env: "
+          f"{ra.split_line(clk, cyc, inp.origins.shape[0])}", flush=True)
 
 
 def depth_vs_plain(rc, inp, tag):
@@ -813,42 +831,22 @@ def cnn_checks(fc, dev):
             {"fwd": (x4, ws4), "bwd": (x6, ws6, dp6)})
 
 
-def depth_checks(envs, rc, dev):
+def depth_checks(ra, rc, dev):
     """Phase 15: the raw depth kernel at MAPlanning's full shape (4096
     envs x 4 robots, after 30 env steps), at DepthGen's 1024-env scene of
-    168 records (unguarded) and on a 256-env mixed scene culled at 4.5 m.
-    Returns (max error, {shape: (inputs, live records per env)})."""
-    ma = envs.make_task("maplanning", num_envs=4096, device=dev)
-    g = torch.Generator(device=dev).manual_seed(31)
-    st = ma.initial_state(g)
-    for _ in range(30):
-        a = torch.rand((ma.flat_n, 4), generator=g, device=dev) * 1.2 - 0.6
-        a[:, 3] = -0.69 + 0.1 * a[:, 3]
-        st, _ = ma.step(st, a, g, render=False)
-    root = st.core.root
-    inp_ma = rc.prepare(ma.cam_cfg, root, ma.scene(root, st.goal))
+    168 records (unguarded) and on a 256-env mixed scene culled at 4.5 m
+    (kernels/render_ab.depth_cases). Returns (max error, {shape: inputs})."""
+    cases = ra.depth_cases(dev)
+    inp_ma = cases["maplanning 16384"]
     check(inp_ma.prims.shape == (16384, 8, 12) and inp_ma.counts
           == (0, 5, 0, 0), f"maplanning scene packs as {inp_ma.counts}")
-    err_ma, live_ma = depth_vs_plain(rc, inp_ma, "maplanning 16384")
-
-    dg = envs.make_task("depthgen", num_envs=DEPTHGEN_ENVS, device=dev)
-    dst = dg.initial_state(torch.Generator(device=dev).manual_seed(32))
-    inp_dg = rc.prepare(dg.cam_cfg, dst.core.root, dg.scene(dst))
+    inp_dg = cases["depthgen 1024 unguarded"]
     check(inp_dg.prims.shape[1] == 168 and inp_dg.counts == (75, 72, 15, 3),
           f"depthgen scene packs as {inp_dg.counts}")
-    err_dg, live_dg = depth_vs_plain(rc, inp_dg, "depthgen 1024 unguarded")
-
-    rng = torch.Generator(device=dev).manual_seed(33)
-    u = lambda *shape: torch.rand(shape, generator=rng, device=dev)
-    n = 256
-    mix_root = root[:n].clone()
-    mix_root[:, 0:3] = torch.tensor([0.0, 0.0, 1.0], device=dev)
-    inp_m = rc.prepare(ma.cam_cfg, mix_root, mixed_scene(u, n, dev), None,
-                       4.5)
+    inp_m = cases["mixed 256 guarded"]
     check(int(inp_m.live[:, 0].min()) < 20, "the mixed scene must be culled")
-    err_m, _ = depth_vs_plain(rc, inp_m, "mixed 256 guarded")
-    return max(err_ma, err_dg, err_m), {"maplanning": (inp_ma, live_ma),
-                                        "depthgen": (inp_dg, live_dg)}
+    errs = [depth_vs_plain(rc, x, tag)[0] for tag, x in cases.items()]
+    return max(errs), {"maplanning": inp_ma, "depthgen": inp_dg}
 
 
 def main():
@@ -858,6 +856,7 @@ def main():
     from airgym_tpu_torch import envs
     from airgym_tpu_torch.experiments import fused_cnn as fc
     from airgym_tpu_torch.kernels import build
+    from airgym_tpu_torch.kernels import render_ab as ra
     from airgym_tpu_torch.models.actor_critic import CNNEncoder
     from airgym_tpu_torch.models.actor_critic import ActorCritic
     from airgym_tpu_torch.ops import fused_hovering as fh
@@ -892,19 +891,40 @@ def main():
         "fused_rollout", {**fr.KERNEL.entry_points,
                           "fused_rollout_phase_cycles": [ctypes.c_void_p]},
         extra_flags=["-DAIRGYM_ROLLOUT_CLOCKS"])
-    secs = build.build_all(kernels + [fr_clk])
-    print(f"[build] {len(kernels)} kernels in {secs:.1f} s", flush=True)
-    for k in kernels:
+    # the two render sources once more with their phase clocks (phases 12
+    # and 19) and SASS probes
+    rc_clk = ra.kernels(None, clocks=True)
+    secs = build.build_all(kernels + [fr_clk, *rc_clk.values()])
+    print(f"[build] {len(kernels)} kernels and 3 clock builds in {secs:.1f} "
+          f"s", flush=True)
+    for k in kernels + list(rc_clk.values()):
+        tag = k.name + (" (clock build)" if k in rc_clk.values() else "")
         for line in k.build_log.splitlines():
             if ("registers" in line or "spill" in line or "error" in line
                     or "Compiling entry" in line):
-                print(f"[build] {k.name}: {line.strip()}", flush=True)
+                print(f"[build] {tag}: {line.strip()}", flush=True)
+    for k in (rc.KERNEL, rc.DEPTH_KERNEL):
+        check(all(" 0 bytes spill stores" in line
+                  for line in k.build_log.splitlines() if "spill" in line),
+              f"{k.name} spills registers at its launch bounds")
     print(f"[build] render_process: dynamic shared memory "
           f"{rc.KERNEL.lib().render_process_smem_bytes(48, 212, 120)} bytes "
           f"per block at 212 x 120 with 48 records", flush=True)
     print(f"[build] render_depth: dynamic shared memory "
-          f"{rc.DEPTH_KERNEL.lib().render_depth_smem_bytes(168)} bytes per "
-          f"block with 168 records", flush=True)
+          f"{rc.DEPTH_KERNEL.lib().render_depth_smem_bytes(168, 212, 120)} "
+          f"bytes per block with 168 records at 212 x 120", flush=True)
+    sass = ra.sass_counts(rc_clk["render_depth"])
+    body = ra.cast_body_counts(sass)
+    check(bool(body) and len(body) == 4,
+          f"no SASS counts of the cast bodies: {sorted(sass)[:4]}")
+    print(f"[build] SASS instructions of one record's cast body (the clock "
+          f"build's sass_probe<KIND> less the empty probe): {body}; the "
+          f"parent design's {PARENT_CAST_SASS}", flush=True)
+    for k in rc_clk.values():
+        total = {fn: c for fn, c in ra.sass_counts(k).items()
+                 if "sass_probe" not in fn}
+        print(f"[build] SASS instructions of {k.name}'s kernel: "
+              f"{list(total.values())}", flush=True)
     print(f"[build] fused_cnn: dynamic shared memory "
           f"{fc.KERNEL.lib().fused_cnn_smem_bytes(212, 120)} bytes per block "
           f"of the float32 kernels at 212 x 120; forward workspace "
@@ -1155,7 +1175,9 @@ def main():
 
     # ---- 12. the render + post-process kernel vs its plain version ---------
     phase(12)
-    render_err, render_case = render_checks(envs, rc, dev)
+    render_err, render_cases = render_checks(ra, rc, dev)
+    for tag in ("planning 4096 guarded", "box 1024 unguarded"):
+        render_split(ra, rc_clk["render_process"], render_cases[tag], tag)
 
     # ---- 13. Planning training -----------------------------------------------
     phase(13)
@@ -1188,31 +1210,42 @@ def main():
 
     # ---- 14. render kernel timing ---------------------------------------------
     phase(14)
-    inp, live_mean = render_case
+    inp = render_cases["planning 4096 guarded"]
     times["render_process"] = (
         cuda_time_ms(lambda: rc.render_process_packed(inp)),
         cuda_time_ms(lambda: rc.render_process_packed_plain(inp),
                      PLAIN_REPS),
-        *render_bound(inp, live_mean))
+        *render_bound(inp)[:2])
     k_ms, p_ms, b_ms, b_by = times["render_process"]
-    print(f"[time] render_process: kernel {k_ms:.3f} ms (plain {p_ms:.3f}, "
-          f"bound {b_ms:.4f} by {b_by}; records live per env "
-          f"{[round(x, 3) for x in live_mean]})", flush=True)
+    live_mean = inp.live.to(torch.float32).mean(0).tolist()
+    print(f"[time] render_process: kernel {k_ms:.3f} ms (parent "
+          f"{PARENT_RENDER_MS['culled']}), plain {p_ms:.3f}, bound "
+          f"{b_ms:.4f} by {b_by} (parent design's bound "
+          f"{render_bound(inp)[2]:.4f}); records live per env "
+          f"{[round(x, 3) for x in live_mean]}, cast per env "
+          f"{cast_records(inp).float().mean(0).tolist()}", flush=True)
     # the same render unculled: every record in every env
     full = inp._replace(live=torch.tensor(
         inp.counts, dtype=torch.int32, device=dev)[None].repeat(
             inp.live.shape[0], 1))
     u_ms = cuda_time_ms(lambda: rc.render_process_packed(full))
-    ub_ms, ub_by = render_bound(full, list(inp.counts))
-    print(f"[time] render_process unculled: kernel {u_ms:.3f} ms (bound "
-          f"{ub_ms:.4f} by {ub_by}; records per env {list(inp.counts)})",
-          flush=True)
-    del p_trainer, p_ts, full
+    ub_ms, ub_by, uo_ms = render_bound(full)
+    print(f"[time] render_process unculled: kernel {u_ms:.3f} ms (parent "
+          f"{PARENT_RENDER_MS['unculled']}), bound {ub_ms:.4f} by {ub_by} "
+          f"(parent design's bound {uo_ms:.4f}); records per env "
+          f"{list(inp.counts)}", flush=True)
+    box = render_cases["box 1024 unguarded"]
+    bx_ms = cuda_time_ms(lambda: rc.render_process_packed(box))
+    bb_ms, bb_by, bo_ms = render_bound(box)
+    print(f"[time] render_process box 1024 unguarded: kernel {bx_ms:.3f} ms,"
+          f" bound {bb_ms:.4f} by {bb_by} (parent design's bound "
+          f"{bo_ms:.4f})", flush=True)
+    del p_trainer, p_ts, full, render_cases
     torch.cuda.empty_cache()
 
     # ---- 15. the raw depth kernel vs its plain version ---------------------
     phase(15)
-    depth_err, depth_cases = depth_checks(envs, rc, dev)
+    depth_err, depth_cases = depth_checks(ra, rc, dev)
 
     # ---- 16. MAPlanning training at full width -----------------------------
     phase(16)
@@ -1316,16 +1349,21 @@ def main():
     # ---- 19. raw depth kernel timing -------------------------------------------
     phase(19)
     depth_times = {}
-    for shape, (d_inp, d_live) in depth_cases.items():
+    for shape, d_inp in depth_cases.items():
         depth_times[shape] = (
             cuda_time_ms(lambda: rc.render_depth_packed(d_inp)),
             cuda_time_ms(lambda: rc.render_depth_packed_plain(d_inp),
                          PLAIN_REPS),
-            *depth_bound(d_inp, d_live))
+            *depth_bound(d_inp)[:2])
         k_ms, p_ms, b_ms, b_by = depth_times[shape]
-        print(f"[time] render_depth {shape}: kernel {k_ms:.3f} ms (plain "
-              f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}; records cast per env "
-              f"{[round(x, 3) for x in d_live]})", flush=True)
+        d_live = d_inp.live.to(torch.float32).mean(0).tolist()
+        print(f"[time] render_depth {shape}: kernel {k_ms:.3f} ms (parent "
+              f"{PARENT_DEPTH_MS[shape]}), plain {p_ms:.3f}, bound "
+              f"{b_ms:.4f} by {b_by} (parent design's bound "
+              f"{depth_bound(d_inp)[2]:.4f}); records live per env "
+              f"{[round(x, 3) for x in d_live]}, cast per env "
+              f"{cast_records(d_inp).float().mean(0).tolist()}", flush=True)
+        render_split(ra, rc_clk["render_depth"], d_inp, shape)
     times["render_depth"] = depth_times["maplanning"]
 
     # ---- 20. the fused CNN kernels vs their plain versions ----------------

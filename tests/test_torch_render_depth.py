@@ -12,6 +12,14 @@ vanishing discriminant, or the ground near the horizon, t = -oz / uz).
 The CUDA kernel and the plain version agree to the bit on the card
 (chip_smoke.py). Against the oracle: where both hit and agree to 1e-2
 after clipping at 10 m, at atol 1e-2 (tests/test_pallas_raycast.py).
+
+The kernel source itself, csrc/render_depth.cu on csrc/raycast.cuh, is
+also compiled for the CPU against csrc/cuda_emu.h and held against the
+plain version at the card's gate (|err| <= 1e-5 where both hit, at most
+max(1, N / 1000) hit / miss flips) and to the bit on a few envs at 212 x
+120, with the plain version's square roots correctly rounded as on the
+card. The emulated card has two SMs, so each env's image is cast in two
+bands.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +30,9 @@ from airgym_tpu.render import depth as jdr
 from airgym_tpu.render import pallas_raycast as jpr
 from airgym_tpu_torch.render import depth as tdr
 from airgym_tpu_torch.render import raycast as trc
-from test_torch_render import (CAM_J, CAM_T, TOL, roots_np, scene_np, to_jax,
-                               to_torch)
+from test_torch_render import (CAM_J, CAM_T, TOL, emulate,  # noqa: F401
+                               ieee_sqrt, kernel_case, roots_np, scene_np,
+                               to_jax, to_torch)
 
 GRAZING = 1e-3          # share of pixels allowed past TOL
 BIG = 1e9
@@ -139,3 +148,33 @@ def test_render_clean_is_the_clamped_normalised_depth():
     assert img.shape == (2, 1, 32, 16)
     want = np.clip(depth.numpy(), 0.0, 4.5) / np.float32(4.5)
     np.testing.assert_array_equal(img[:, 0].numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def emulated_depth(tmp_path_factory):
+    return emulate(trc.DEPTH_KERNEL, tmp_path_factory)
+
+
+@pytest.mark.parametrize("scene", ["planning", "mixed"])
+def test_kernel_source_matches_plain_on_cpu(emulated_depth, ieee_sqrt,
+                                            scene):
+    """csrc/render_depth.cu on the emulated card against the plain
+    version (with the correctly rounded root) under the card's gate, and
+    to the bit, as on the card; two runs bitwise equal."""
+    kernel = emulated_depth
+    inp = kernel_case(scene)
+    assert int(inp.live[:, 0].min()) < inp.counts[0]     # the cull bites
+    before = kernel.launches["render_depth"]
+    runs = [trc.launch_depth(kernel, inp, None) for _ in range(2)]
+    assert kernel.launches["render_depth"] == before + 2
+    ref = trc.render_depth_packed_plain(inp)
+    got = runs[0]
+    assert got.shape == ref.shape == (4, 212, 120)
+    assert bool(torch.isfinite(got).all())
+    hit_k, hit_p = got < 1e8, ref < 1e8
+    both = hit_k & hit_p
+    assert float(both.float().mean()) > 0.05
+    assert int((hit_k != hit_p).sum()) <= 1
+    assert float((got - ref).abs()[both].max()) <= 1e-5
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), runs[1].view(torch.int32))
