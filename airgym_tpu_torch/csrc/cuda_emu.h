@@ -1,12 +1,12 @@
 // Test builds only, never part of a card build: the subset of CUDA that
 // fused_cnn.cu (with mma_bf16.cuh), fused_update.cu, fused_rollout.cu
-// (with quad_step.cuh and common.cuh), render_process.cu and
-// render_depth.cu (with raycast.cuh) use, emulated on the CPU, so the
-// kernel sources themselves can be compiled with g++ and held against
-// their plain versions where there is no card
+// and fused_hovering.cu (with quad_step.cuh and common.cuh),
+// render_process.cu and render_depth.cu (with raycast.cuh) use, emulated
+// on the CPU, so the kernel sources themselves can be compiled with g++
+// and held against their plain versions where there is no card
 // (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py,
-// tests/test_torch_fused_rollout.py, tests/test_torch_render.py,
-// tests/test_torch_render_depth.py):
+// tests/test_torch_fused_rollout.py, tests/test_torch_fused_hovering.py,
+// tests/test_torch_render.py, tests/test_torch_render_depth.py):
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -ffp-contract=off -include cuda_emu.h
 //       -x c++ fused_cnn.cu -o libfused_cnn_emu.so -lpthread
@@ -21,7 +21,8 @@
 // on the bits. It checks indexing, barriers and rounding points, not speed
 // or the GPU compiler.
 //
-// A warp's vote (__ballot_sync) goes through its exchange buffer too.
+// A warp's vote (__ballot_sync, __any_sync) goes through its exchange
+// buffer too.
 //
 // mma_bf16.cuh's warp-level product (emu_mma_16816): each lane writes its
 // fragments to its warp's exchange buffer, waits at the warp's barrier of
@@ -123,6 +124,10 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return m;
 }
 
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0u;
+}
+
 // mma.sync m16n8k16 row.col f32.bf16.bf16.f32 (see the header note)
 inline void emu_mma_16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
   EmuWarp& w = *emu_warp;
@@ -173,6 +178,13 @@ template <class K>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
                                                                  size_t) {
   *n = 1;
+  return 0;
+}
+// a kernel's attributes: the emulation has no registers or local memory
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class K>
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  *a = {0, 0};
   return 0;
 }
 inline const char* cudaGetErrorString(int) { return "emulated CUDA error"; }

@@ -196,17 +196,27 @@ __device__ __forceinline__ float ups_z(const Quad& s) {
   return 1.0f - 2.0f * (s.qx * s.qx + s.qy * s.qy);
 }
 
-// Hovering reward (target: identity at the origin), against the previous
-// actions still in s.pa*; sets `die`.
-__device__ __forceinline__ float hover_reward(const Quad& s, float a0, float a1,
-                                              float a2, float a3,
-                                              const float c[4], bool& die) {
+// The hovering reward's two action terms: continuity of the action
+// a0..a3 with the previous one p0..p3, and thrust against the hover thrust.
+__device__ __forceinline__ float cont_reward(float a0, float a1, float a2,
+                                             float a3, float p0, float p1,
+                                             float p2, float p3) {
+  const float d0 = a0 - p0, d1 = a1 - p1, d2 = a2 - p2, d3 = a3 - p3;
+  const float dn = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+  return 0.2f * expf(-dn) + 0.5f / (1.0f + sq(3.0f * d3));
+}
+
+__device__ __forceinline__ float thrust_reward(float a3) {
+  return 0.1f * (1.0f - fabsf(0.1533f - a3));
+}
+
+// Hovering reward (target: identity at the origin) from its action terms;
+// sets `die`.
+__device__ __forceinline__ float hover_reward(const Quad& s, float cont_r,
+                                              float thrust_r, const float c[4],
+                                              bool& die) {
   const float up = ups_z(s);
   const float effort_r = 0.1f * (4.0f - (((c[0] + c[1]) + c[2]) + c[3])) / 4.0f;
-  const float d0 = a0 - s.pa0, d1 = a1 - s.pa1, d2 = a2 - s.pa2, d3 = a3 - s.pa3;
-  const float dn = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
-  const float cont_r = 0.2f * expf(-dn) + 0.5f / (1.0f + sq(3.0f * d3));
-  const float thrust_r = 0.1f * (1.0f - fabsf(0.1533f - a3));
   const float dist = sqrtf(s.px * s.px + s.py * s.py + s.pz * s.pz);
   const float pos_r = 0.7f / (1.0f + sq(1.6f * dist));
   const float vn = sqrtf(s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
@@ -219,6 +229,14 @@ __device__ __forceinline__ float hover_reward(const Quad& s, float a0, float a1,
   die = (dist > 4.0f) || (s.pz < -2.0f) || (s.pz > 2.0f) || (up < 0.0f);
   return (((cont_r + effort_r) + thrust_r) + pos_r)
          + pos_r * (((veldir_r + ups_r) + spin_r) + yaw_r);
+}
+
+// The same, against the previous actions still in s.pa*.
+__device__ __forceinline__ float hover_reward(const Quad& s, float a0, float a1,
+                                              float a2, float a3,
+                                              const float c[4], bool& die) {
+  return hover_reward(s, cont_reward(a0, a1, a2, a3, s.pa0, s.pa1, s.pa2, s.pa3),
+                      thrust_reward(a3), c, die);
 }
 
 // 12 reset draws -> root[13] (pos, xyzw quat, linvel, angvel), in the

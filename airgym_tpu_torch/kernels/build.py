@@ -16,6 +16,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,6 +36,35 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels build with the CUDA "
                        "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def find_cuobjdump():
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def sass(kernel) -> Dict[str, list]:
+    """The SASS of each kernel function in ``kernel``'s built library
+    (``cuobjdump -sass``): {function name: [(address, instruction)]}, NOPs
+    left out. Empty without cuobjdump."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(kernel.so_path())],
+                          capture_output=True, text=True, timeout=120).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name and m and "NOP" not in m.group(2).split():
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return funcs
 
 
 class CudaKernel:

@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import shutil
 import statistics
 import subprocess
 from pathlib import Path
@@ -208,31 +207,10 @@ def split_line(kernel, cyc, n_env):
                      for name, c in zip(PHASES[kernel.name], cyc))
 
 
-def find_cuobjdump():
-    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
-        if cand and Path(cand).exists():
-            return cand
-    return None
-
-
 def sass_counts(kernel):
     """SASS instructions (NOPs left out) of each kernel in ``kernel``'s
     library: {function name: count}; empty without cuobjdump."""
-    tool = find_cuobjdump()
-    if tool is None:
-        return {}
-    text = subprocess.run([tool, "-sass", str(kernel.so_path())],
-                          capture_output=True, text=True, timeout=120).stdout
-    counts, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = 0
-        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line) \
-                and " NOP" not in line:
-            counts[name] += 1
-    return counts
+    return {fn: len(instrs) for fn, instrs in build.sass(kernel).items()}
 
 
 def cast_body_counts(counts):

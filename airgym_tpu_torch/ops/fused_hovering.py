@@ -46,7 +46,8 @@ KERNEL = build.CudaKernel("fused_hovering", {"fused_hovering_launch": [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p]})
+    ctypes.c_int, ctypes.c_void_p],
+    "fused_hovering_shape": [ctypes.c_int, ctypes.c_void_p]})
 
 
 def pack_state(core) -> torch.Tensor:
@@ -330,18 +331,36 @@ def rollout_fused(packed: torch.Tensor, action: torch.Tensor, seed: int,
     if not packed.is_cuda:
         return rollout_fused_plain(packed, action, seed, steps,
                                    motor_alpha=motor_alpha)
+    return _kernel_rollout(KERNEL, packed, action, seed, steps, motor_alpha)
+
+
+def _kernel_rollout(kernel, packed, action, seed, steps, motor_alpha):
+    """One launch of ``kernel`` (this source's build, or another build of
+    it: the clock build, an emulated one, an older version), counted in
+    ``kernel.launches["env"]``."""
     n = packed.shape[1]
     s_in = packed.contiguous()
     a = [float(x) for x in action.cpu()]
     out = torch.empty_like(s_in)
     rew = torch.empty((n,), dtype=torch.float32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    KERNEL.call("fused_hovering_launch", s_in.data_ptr(), *a,
+    stream = (torch.cuda.current_stream(packed.device).cuda_stream
+              if packed.is_cuda else None)
+    kernel.call("fused_hovering_launch", s_in.data_ptr(), *a,
                 out.data_ptr(), rew.data_ptr(), n, steps,
                 int(seed) & hr.M32, float(motor_alpha),
                 float(1.0 - motor_alpha), int(motor_alpha > 0.0), stream)
-    KERNEL.launches["env"] += 1
+    kernel.launches["env"] += 1
     return out, rew
+
+
+def launch_shape(n: int, kernel=None) -> dict:
+    """The kernel's launch at n envs on the current card: threads per
+    block, blocks, resident blocks per SM (the occupancy calculator's),
+    registers and local memory bytes per thread."""
+    out = (ctypes.c_int * 5)()
+    (kernel or KERNEL).call("fused_hovering_shape", n, out)
+    return dict(zip(("threads", "blocks", "per_sm", "registers", "local"),
+                    out))
 
 
 def rollout_fused_plain(packed: torch.Tensor, action: torch.Tensor,

@@ -9,7 +9,10 @@ Phases, each of which exits non-zero on failure:
      started together) and print each kernel's registers and spills; the
      two render sources once more with -DAIRGYM_RENDER_CLOCKS, and the
      SASS instruction count of each record kind's cast body in that build
-     (cuobjdump -sass) beside the parent design's;
+     (cuobjdump -sass) beside the parent design's; the env-only source
+     once more with -DAIRGYM_HOVER_CLOCKS, and the env-only kernel's
+     registers, blocks per SM and waves at 131,072 envs and the SASS of
+     its step loop and of the reset block behind its warp vote;
   3. hold the Hovering rollout kernel against its plain PyTorch version at
      the main-path shape (4096 envs x 24 steps, obs noise on), two kernel
      runs on the same inputs bitwise equal;
@@ -39,16 +42,23 @@ Phases, each of which exits non-zero on failure:
      with two bitwise-equal kernel runs;
   9. hold the env-only Hovering kernel against its plain version at 4096
      envs x 64 steps with resets, then drive it once at 131,072 envs x 64
-     (counters set to 0 before, read after) and hold that run against the
-     plain version too;
+     under the climb action (counters set to 0 before, read after) and
+     hold that run, and one under the reference bench's hover action,
+     against the plain version too, each with a second launch bitwise
+     equal (kernels/hovering_ab.py's two traffics);
  10. train Balloon (configs/ppo_balloon.yaml at 4096 envs) and Tracking
      (configs/ppo_tracking.yaml) for 3 epochs each through the runner,
      counters checked (1 rollout + 1 update launch per epoch; the Adam
      count 320 / 240 per epoch), save and reload each, and profile one
      epoch each (exactly one update kernel);
- 11. time the Balloon / Tracking / env-only kernels and the 48-feature
-     update (with its G) and their plain versions, the Balloon / Tracking
-     rollouts with their launch shapes and cycle split as in phase 6;
+ 11. time the Balloon / Tracking kernels and the 48-feature update (with
+     its G) and their plain versions, the Balloon / Tracking rollouts with
+     their launch shapes and cycle split as in phase 6; the env-only
+     kernel under both traffics (climb x 64 beside its plain version;
+     hover x 8000, bench.py's length, the kernel alone, in env-steps/s),
+     each with its clock build's cycle split, its bound counted from this
+     source with the window's resets beside the parent design's count,
+     and its issue bound;
  12. hold the fused render + post-process kernel against its plain
      version: at Planning's full shape (4096 envs, 212 x 120, 40 trees, a
      goal ball and the ground, culled at 4.5 m, after some env steps), on
@@ -125,18 +135,18 @@ EPOCHS = 4                      # Hovering
 TASK_EPOCHS = 3                 # Balloon, Tracking
 TIMING_REPS = 20                # kernels; plain versions take PLAIN_REPS
 PLAIN_REPS = 5
-ENV_N, ENV_STEPS = 131072, 64   # env-only kernel: main-path run and timing
 
 # H100 SXM: 67 TFLOP/s FP32 outside the tensor cores, 989 TFLOP/s of bf16
 # on the tensor cores (dense), 3.35 TB/s HBM3
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
-# FP32 operations of one env-only step per env, counted by hand from
-# csrc/quad_step.cuh (each division, square root and transcendental as
-# one; the hash's integer work not counted): controller ~140, physics
-# ~180, hovering reward ~150, reset float math ~110
-ENV_STEP_OPS = 580
+# the env-only kernel's FP32 operations are counted in
+# airgym_tpu_torch/kernels/hovering_ab.py (per env-step, per reset, per
+# env once), its bound from the resets the run makes; the parent design's
+# times (kernels/hovering_ab.py on an H100 80GB HBM3 at 700 W), printed
+# beside the redesigned kernel's: climb x 64, hover x 8000
+PARENT_ENV_MS = {"climb": 0.4224, "hover": 43.08}
 # FP32 operations of the two render kernels, counted by hand from
 # csrc/raycast.cuh, csrc/render_process.cu and csrc/render_depth.cu: each
 # add, multiply, division, square root, log, cosine, comparison, minimum,
@@ -338,25 +348,32 @@ def rollout_shape_and_split(fr, fr_clk, task, packed, pack, seed, steps,
           f"{per_step[2]:.0f} ({100 * cyc[2] / total:.1f}%)", flush=True)
 
 
-def env_vs_plain(fh, packed, act, seed, steps, out_k, rew_k):
+def env_vs_plain(fh, packed, act, seed, steps, out_k, rew_k, tag):
     """The env-only kernel's result (out_k, rew_k) vs its plain version on
-    the same inputs; returns (max state err, max reward-sum err)."""
+    the same inputs, and vs a second launch (bitwise); returns (max state
+    err, max reward-sum err)."""
+    out_k2, rew_k2 = fh.rollout_fused(packed, act, seed, steps)
     out_p, rew_p = fh.rollout_fused_plain(packed, act, seed, steps)
     torch.cuda.synchronize()
     n = packed.shape[1]
+    bits = lambda x: x.view(torch.int32)
+    check(torch.equal(bits(out_k), bits(out_k2))
+          and torch.equal(bits(rew_k), bits(rew_k2)),
+          f"env-only kernel ({tag}) at {n}x{steps}: two launches differ")
     check(torch.equal(out_k[19:21], out_p[19:21]),
-          f"env-only kernel at {n}x{steps}: progress / reset flags differ "
-          f"from plain")
+          f"env-only kernel ({tag}) at {n}x{steps}: progress / reset flags "
+          f"differ from plain")
     env_err = float((out_k[:29] - out_p[:29]).abs().max())
     rew_err = float((rew_k - rew_p).abs().max())
     n_fresh = int((out_p[19] < steps).sum())
-    print(f"[env-only] {n}x{steps}: max|state err| {env_err:.3e} "
+    print(f"[env-only {tag}] {n}x{steps}: max|state err| {env_err:.3e} "
           f"max|reward-sum err| {rew_err:.3e} envs reset in the window "
-          f"{n_fresh}", flush=True)
-    check(n_fresh > 0, f"env-only window at {n}x{steps} has no resets")
+          f"{n_fresh}; two launches bitwise equal", flush=True)
+    check(n_fresh > 0, f"env-only window ({tag}) at {n}x{steps} has no resets")
     check(env_err <= ENV_STATE_ATOL and rew_err <= ENV_REWARD_ATOL,
-          f"env-only kernel disagrees with its plain version at {n}x{steps}")
-    check(torch.equal(out_k[29:], packed[29:]),
+          f"env-only kernel ({tag}) disagrees with its plain version at "
+          f"{n}x{steps}")
+    check(torch.equal(bits(out_k[29:]), bits(packed[29:])),
           "env-only kernel changed rows 29:40")
     return env_err, rew_err
 
@@ -856,6 +873,7 @@ def main():
     from airgym_tpu_torch import envs
     from airgym_tpu_torch.experiments import fused_cnn as fc
     from airgym_tpu_torch.kernels import build
+    from airgym_tpu_torch.kernels import hovering_ab as ha
     from airgym_tpu_torch.kernels import render_ab as ra
     from airgym_tpu_torch.models.actor_critic import CNNEncoder
     from airgym_tpu_torch.models.actor_critic import ActorCritic
@@ -894,8 +912,11 @@ def main():
     # the two render sources once more with their phase clocks (phases 12
     # and 19) and SASS probes
     rc_clk = ra.kernels(None, clocks=True)
-    secs = build.build_all(kernels + [fr_clk, *rc_clk.values()])
-    print(f"[build] {len(kernels)} kernels and 3 clock builds in {secs:.1f} "
+    # the env-only source once more with its phase clocks and counters
+    # (phase 11)
+    fh_clk = ha.kernel_build(clocks=True)
+    secs = build.build_all(kernels + [fr_clk, *rc_clk.values(), fh_clk])
+    print(f"[build] {len(kernels)} kernels and 4 clock builds in {secs:.1f} "
           f"s", flush=True)
     for k in kernels + list(rc_clk.values()):
         tag = k.name + (" (clock build)" if k in rc_clk.values() else "")
@@ -903,10 +924,23 @@ def main():
             if ("registers" in line or "spill" in line or "error" in line
                     or "Compiling entry" in line):
                 print(f"[build] {tag}: {line.strip()}", flush=True)
-    for k in (rc.KERNEL, rc.DEPTH_KERNEL):
+    for k in (rc.KERNEL, rc.DEPTH_KERNEL, fh.KERNEL):
         check(all(" 0 bytes spill stores" in line
                   for line in k.build_log.splitlines() if "spill" in line),
               f"{k.name} spills registers at its launch bounds")
+    env_shape, env_shape_line = ha.shape_line(fh.KERNEL)
+    print(f"[build] fused_hovering at {ha.N_ENVS} envs: {env_shape_line}",
+          flush=True)
+    check(env_shape["per_sm"] * torch.cuda.get_device_properties(0)
+          .multi_processor_count >= env_shape["blocks"],
+          f"env-only kernel needs more than one wave: {env_shape}")
+    env_sass = ha.loop_sass(fh.KERNEL)
+    check(bool(env_sass) and env_sass["hot_reset"] is not None,
+          f"no SASS counts of the env-only step loop: {env_sass}")
+    print(f"[build] fused_hovering SASS (static): kernel "
+          f"{env_sass['kernel']}, step loop {env_sass['loop']} ({env_sass['hot']} "
+          f"without cold paths), reset block behind the vote "
+          f"{env_sass['reset']} ({env_sass['hot_reset']})", flush=True)
     print(f"[build] render_process: dynamic shared memory "
           f"{rc.KERNEL.lib().render_process_smem_bytes(48, 212, 120)} bytes "
           f"per block at 212 x 120 with 48 records", flush=True)
@@ -1084,21 +1118,18 @@ def main():
 
     # ---- 9. env-only Hovering kernel ------------------------------------------
     phase(9)
-    act = torch.tensor([0.05, -0.05, 0.02, 0.4], device=dev)
     e_task = envs.make_task("hovering", ctl_mode="rate", num_envs=n_envs,
                             device=dev)
     e_packed = fh.pack_state(e_task.initial_state(
         torch.Generator(device=dev).manual_seed(13)).core)
     e_packed[19, :256] = 2380.0
-    out_k, rew_k = fh.rollout_fused(e_packed, act, 99, 64)
-    env_err, rew_err = env_vs_plain(fh, e_packed, act, 99, 64, out_k, rew_k)
-    big_task = envs.make_task("hovering", ctl_mode="rate", num_envs=ENV_N,
-                              device=dev)
-    big = fh.pack_state(big_task.initial_state(
-        torch.Generator(device=dev).manual_seed(17)).core)
-    big[19, :256] = 2380.0
+    big, env_acts = ha.traffic(dev)
+    act = env_acts["climb"]
+    out_k, rew_k = fh.rollout_fused(e_packed, act, 99, ha.STEPS)
+    env_err, rew_err = env_vs_plain(fh, e_packed, act, 99, ha.STEPS, out_k,
+                                    rew_k, "climb")
     reset_counts(kernels)
-    out_big, rew_big = fh.rollout_fused(big, act, 5, ENV_STEPS)
+    out_big, rew_big = fh.rollout_fused(big, act, ha.SEED, ha.STEPS)
     torch.cuda.synchronize()
     launches["env"] = fh.KERNEL.launches["env"]
     check(launches["env"] == 1 and sum(fr.KERNEL.launches.values()) == 0,
@@ -1108,9 +1139,13 @@ def main():
           "env-only run at full size is not finite")
     qn = out_big[3:7].norm(dim=0)
     check(float((qn - 1.0).abs().max()) < 1e-3, "env-only: quats not unit")
-    # the main path's own launch against the plain version at its shape
-    big_errs = env_vs_plain(fh, big, act, 5, ENV_STEPS, out_big, rew_big)
-    env_err, rew_err = max(env_err, big_errs[0]), max(rew_err, big_errs[1])
+    # the main path's own launch against the plain version at its shape,
+    # then the reference bench's hover action at the same shape
+    for name, a in env_acts.items():
+        res = (out_big, rew_big) if name == "climb" else \
+            fh.rollout_fused(big, a, ha.SEED, ha.STEPS)
+        errs = env_vs_plain(fh, big, a, ha.SEED, ha.STEPS, *res, name)
+        env_err, rew_err = max(env_err, errs[0]), max(rew_err, errs[1])
 
     # ---- 10. Balloon and Tracking training ------------------------------------
     phase(10)
@@ -1157,21 +1192,56 @@ def main():
         cuda_time_ms(lambda: fu.fused_update_plain(*upd48_args, **upd48_kw),
                      PLAIN_REPS),
         *update_bound(48, upd48_args[0].shape[0], upd48_kw["mini_epochs"]))
+    # the env-only kernel under both traffics: its counters (clock build)
+    # on the same inputs give the resets the bound counts
+    env_runs = {"climb": ha.STEPS, "hover": ha.LONG_STEPS}
+    env_counts = {
+        name: ha.counts(fh_clk, lambda a=a, t=env_runs[name]:
+                        ha.run(fh_clk, big, a, t))
+        for name, a in env_acts.items()}
+    resets = env_counts["climb"][0][5]
     times["env"] = (
-        cuda_time_ms(lambda: fh.rollout_fused(big, act, 5, ENV_STEPS)),
-        cuda_time_ms(lambda: fh.rollout_fused_plain(big, act, 5, ENV_STEPS),
-                     PLAIN_REPS),
-        *bound_ms(ENV_STEP_OPS * ENV_N * ENV_STEPS,
-                  4.0 * (2 * fh._F * ENV_N + ENV_N + 4)))
+        cuda_time_ms(lambda: fh.rollout_fused(big, act, ha.SEED, ha.STEPS)),
+        cuda_time_ms(lambda: fh.rollout_fused_plain(big, act, ha.SEED,
+                                                    ha.STEPS), PLAIN_REPS),
+        *ha.bound(ha.N_ENVS, ha.STEPS, resets)[2:])
+    hover = env_acts["hover"]
+    hover_ms = cuda_time_ms(lambda: fh.rollout_fused(big, hover, ha.SEED,
+                                                     ha.LONG_STEPS), 5)
+    env_clocks = {
+        "nvidia-smi": ha.sm_clock_mhz(lambda: fh.rollout_fused(
+            big, hover, ha.SEED, ha.LONG_STEPS), 20),
+        "clock build, hover x 8000": ha.block_mhz(*env_counts["hover"],
+                                                  ha.N_ENVS)}
     for name, (p, t_pack, steps_t) in task_inputs.items():
         rollout_shape_and_split(fr, fr_clk, name, p, t_pack, seed, steps_t,
                                 times)
-    for key in ("obs48", "env"):
-        k_ms, p_ms, b_ms, b_by = times[key]
-        grid = (f"G={fu.grid_size(48, dev)} blocks, "
-                if key == "obs48" else "")
-        print(f"[time] {key}: kernel {k_ms:.3f} ms ({grid}plain {p_ms:.3f}, "
-              f"bound {b_ms:.4f} by {b_by})", flush=True)
+    k_ms, p_ms, b_ms, b_by = times["obs48"]
+    print(f"[time] obs48: kernel {k_ms:.3f} ms (G={fu.grid_size(48, dev)} "
+          f"blocks, plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by})", flush=True)
+    for name, steps_e in env_runs.items():
+        c, c_ms = env_counts[name]
+        ms = times["env"][0] if name == "climb" else hover_ms
+        ops, nbytes, b_ms, b_by = ha.bound(ha.N_ENVS, steps_e,
+                                           c[5] if name == "climb" else 0)
+        old_b = ha.bound(ha.N_ENVS, steps_e, 0, ha.PARENT_STEP_OPS)[2]
+        # the plain version is too slow at 8000 steps; without the resets
+        # the count is still a lower bound
+        plain, counted = ((f"plain {times['env'][1]:.3f} ms, ",
+                           f"the window's {c[5]} resets") if name == "climb"
+                          else ("", "no resets counted"))
+        print(f"[time] env-only {name}: kernel {ms:.4f} ms at {ha.N_ENVS} x "
+              f"{steps_e} ({ha.N_ENVS * steps_e / ms / 1e6:.2f} G env-steps/s; "
+              f"the parent design's {PARENT_ENV_MS[name]} ms), {plain}bound "
+              f"{b_ms:.4f} ms by {b_by} ({ops / 1e9:.3f} GFLOP with "
+              f"{counted}; the parent design's count {old_b:.4f} ms)",
+              flush=True)
+        print(f"[time] env-only {name}: clock build at {ha.N_ENVS} x "
+              f"{steps_e}: {ha.split_line(c, c_ms, ha.N_ENVS, steps_e)}",
+              flush=True)
+        print(f"[time] env-only {name}: "
+              f"{ha.issue_line(env_sass, c, ha.N_ENVS, steps_e, env_clocks)}",
+              flush=True)
 
     # ---- 12. the render + post-process kernel vs its plain version ---------
     phase(12)

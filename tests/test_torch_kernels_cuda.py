@@ -58,18 +58,28 @@ def test_rollout_kernel_matches_plain(device, task):
     torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
 
 
-def test_env_only_kernel_matches_plain(device):
+@pytest.mark.parametrize("action", [[0.1, -0.1, 0.05, 0.7],
+                                    [0.0, 0.0, 0.0, 0.15]],
+                         ids=["climb", "hover"])
+def test_env_only_kernel_matches_plain(device, action):
+    """A climbing action (thrust 0.7) and the reference bench's near-hover
+    one (thrust 0.15), with time-outs in the window; two launches bitwise
+    equal."""
     from airgym_tpu_torch import envs
     t = envs.make_task("hovering", num_envs=2048, device=device)
     state = t.initial_state(torch.Generator(device=device).manual_seed(2))
     packed = fh.pack_state(state.core)
     packed[19, :64] = 2390.0
-    act = torch.tensor([0.1, -0.1, 0.05, 0.7], device=device)
+    act = torch.tensor(action, device=device)
     before = fh.KERNEL.launches["env"]
     out_k, rew_k = fh.rollout_fused(packed, act, 7, 32)
-    assert fh.KERNEL.launches["env"] == before + 1
+    out_k2, rew_k2 = fh.rollout_fused(packed, act, 7, 32)
+    assert fh.KERNEL.launches["env"] == before + 2
     out_p, rew_p = fh.rollout_fused_plain(packed, act, 7, 32)
     torch.cuda.synchronize()
+    assert torch.equal(out_k.view(torch.int32), out_k2.view(torch.int32))
+    assert torch.equal(rew_k.view(torch.int32), rew_k2.view(torch.int32))
+    assert (out_p[19] < 32).sum() >= 64
     assert torch.equal(out_k[19:21], out_p[19:21])
     torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=0)
     torch.testing.assert_close(rew_k, rew_p, atol=1e-3, rtol=0)
