@@ -1,16 +1,22 @@
-"""CLI entry point (counterpart of airgym_tpu/cli.py, train only):
+"""CLI entry point (counterpart of airgym_tpu/cli.py):
 
     python -m airgym_tpu_torch.cli --train --task planning \
         [--ctl_mode rate] [--num_envs N] [--seed S] [--file cfg.yaml] \
-        [--device cuda|cpu]
+        [--experiment_name NAME] [--checkpoint path] [--device cuda|cpu]
+    python -m airgym_tpu_torch.cli --play --task hovering \
+        --checkpoint runs/.../nn/last_ppo_hovering.pth \
+        [--max_steps 1000] [--record_dir DIR] [--device cuda|cpu]
 
 Tasks: hovering, balloon, tracking, planning, avoid, maplanning (DepthGen
 generates datasets: ``make_task("depthgen", num_envs=N).generate(out_dir,
 n_frames)``, no training). Uses the packaged
 airgym_tpu_torch/configs/ppo_<task>.yaml unless --file is given; CLI
-flags override YAML values. ``--ctl_mode`` defaults to rate, the only
-mode ported. Runs on ``cuda`` unless ``--device cpu`` is given, and
-raises without a GPU.
+flags override YAML values (``update_config``). ``--train`` wins over
+``--play``, and neither flag trains (``resolve_train``). ``--ctl_mode``
+defaults to rate. ``--play`` evaluates a native ``.pt`` or reference
+``.pth`` checkpoint and prints ``av reward: ... games played: ...``;
+``--record_dir`` dumps the episode there (needs matplotlib). Runs on
+``cuda`` unless ``--device cpu`` is given, and raises without a GPU.
 """
 from __future__ import annotations
 
@@ -28,35 +34,67 @@ def get_args(argv=None):
     p.add_argument("--task", default="hovering")
     p.add_argument("--ctl_mode", default="rate",
                    choices=["pos", "vel", "atti", "rate", "prop"])
-    p.add_argument("--train", action="store_true",
-                   help="train (the only mode this port runs so far)")
+    p.add_argument("--train", action="store_true")
+    p.add_argument("--play", action="store_true")
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint", default=None,
                    help="native .pt or reference .pth checkpoint to "
-                        "resume from")
+                        "resume from or to play")
+    p.add_argument("--experiment_name", default=None,
+                   help="overrides config.name (the run directory's "
+                        "prefix)")
+    p.add_argument("--headless", action="store_true",
+                   help="accepted for the reference CLI's sake; the port "
+                        "has no viewer")
     p.add_argument("--file", default=None,
                    help="algorithm config YAML (default: packaged "
                         "configs/ppo_<task>.yaml)")
+    p.add_argument("--max_steps", type=int, default=1000,
+                   help="--play: steps to evaluate")
+    p.add_argument("--record_dir", default=None,
+                   help="--play: dump the episode here (trajectory.png, "
+                        "depth.gif, episode.npz)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
+def resolve_train(args) -> bool:
+    """--train wins over --play, and neither flag trains (the reference
+    runner's else branch)."""
+    return args.train or not args.play
+
+
+def update_config(cfg, args):
+    """Merge the CLI's overrides into the YAML config."""
+    c = cfg["params"]["config"]
+    if args.task:
+        c["env_name"] = args.task
+    if args.experiment_name:
+        c["name"] = args.experiment_name
+    if args.num_envs:
+        c["num_actors"] = args.num_envs
+    if args.seed is not None:
+        cfg["params"]["seed"] = args.seed
+    return cfg
+
+
 def run_cli(argv=None):
+    """Parse, run, and return the runner's result: (TrainState, info) for
+    training, the eval dict for --play."""
     args = get_args(argv)
     cfg_path = args.file or os.path.join(CONFIG_DIR, f"ppo_{args.task}.yaml")
     with open(cfg_path) as f:
         cfg = yaml.safe_load(f)
-    c = cfg["params"]["config"]
-    c["env_name"] = args.task
-    if args.num_envs:
-        c["num_actors"] = args.num_envs
+    cfg = update_config(cfg, args)
     from airgym_tpu_torch.rl.runner import Runner
     return Runner().load(cfg).run({
-        "train": True, "task": args.task, "ctl_mode": args.ctl_mode,
-        "num_envs": args.num_envs, "seed": args.seed,
-        "checkpoint": args.checkpoint, "device": args.device})
+        "train": resolve_train(args), "task": args.task,
+        "ctl_mode": args.ctl_mode, "num_envs": args.num_envs,
+        "seed": args.seed, "checkpoint": args.checkpoint,
+        "max_steps": args.max_steps, "record_dir": args.record_dir,
+        "device": args.device})
 
 
 def main(argv=None):

@@ -1,14 +1,19 @@
 """PX4-aligned cascaded flight controller (counterpart of
 airgym_tpu/control/px4.py), batched over envs.
 
-This slice ports the rate loop (CTBR: action = [p, q, r, thrust]) and the
-X-quad mixer with PX4-style desaturation. Outputs are per-rotor thrust
-commands in [0, 1]. The position, velocity, attitude and direct-rotor
-modes are ROADMAP.md queue A item 3b and raise until then.
+The five control modes of the reference (``run``):
+  * ``pos``  (PY):   action = [x, y, z, yaw]            -> rotor cmds
+  * ``vel``  (LV):   action = [vx, vy, vz, yaw_rate]    -> rotor cmds
+  * ``atti`` (CTA):  action = [qw, qx, qy, qz, thrust]  -> rotor cmds
+  * ``rate`` (CTBR): action = [p, q, r, thrust]         -> rotor cmds
+  * ``prop`` (SRT):  action = per-rotor thrusts, bypass.
+The cascade is position P -> velocity PID -> geometric attitude P ->
+body-rate PID -> X-quad mixer with PX4-style desaturation. Outputs are
+per-rotor thrust commands in [0, 1].
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -114,30 +119,145 @@ def rate_control(g: CascadeGains, cs: CascadeState, quat_xyzw: torch.Tensor,
     return cmds, cs._replace(rate_int=rate_int, prev_rate=w_body)
 
 
+def attitude_rates(g: CascadeGains, quat_xyzw: torch.Tensor,
+                   quat_sp_xyzw: torch.Tensor,
+                   yaw_rate_ff: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Quaternion attitude error -> body-rate setpoint (PX4 geometric P)."""
+    q_err = rot.quat_mul(rot.quat_conjugate(rot.quat_normalize(quat_xyzw)),
+                         rot.quat_normalize(quat_sp_xyzw))
+    q_err = rot.quat_canonical(q_err)
+    att_e = 2.0 * q_err[..., :3]              # small-angle body-frame error
+    kw = dict(dtype=att_e.dtype, device=att_e.device)
+    rate_sp = torch.tensor(g.att_p, **kw) * att_e
+    if yaw_rate_ff is not None:
+        rate_sp = torch.cat([rate_sp[..., :2],
+                             rate_sp[..., 2:3] + yaw_rate_ff[..., None]],
+                            dim=-1)
+    lim = torch.tensor(g.rate_max, **kw)
+    return torch.minimum(torch.maximum(rate_sp, -lim), lim)
+
+
+def _accel_to_att_thrust(g: CascadeGains, acc_sp: torch.Tensor,
+                         yaw_sp: torch.Tensor):
+    """Desired world acceleration -> (quat setpoint xyzw, collective cmd).
+
+    f = acc_sp + g e_z is the specific force the rotors must supply; its
+    direction is body z, the yaw setpoint fixes body x (the geometric
+    construction). The tilt is limited before the orientation is built.
+    """
+    zero = torch.zeros_like(yaw_sp)
+    f = acc_sp + torch.stack([zero, zero, torch.full_like(yaw_sp, g.gravity)],
+                             dim=-1)
+    fz = torch.clamp_min(f[..., 2], 1e-3)
+    tan_tilt = torch.tan(torch.tensor(g.max_tilt, dtype=f.dtype,
+                                      device=f.device))
+    max_xy = tan_tilt * fz
+    f_xy = f[..., :2]
+    xy_norm = torch.linalg.norm(f_xy, dim=-1, keepdim=True)
+    scale = torch.clamp_max(max_xy[..., None]
+                            / torch.clamp_min(xy_norm, 1e-6), 1.0)
+    f = torch.cat([f_xy * scale, fz[..., None]], dim=-1)
+
+    f_norm = torch.linalg.norm(f, dim=-1)
+    b3 = f / torch.clamp_min(f_norm[..., None], 1e-6)
+    xc = torch.stack([torch.cos(yaw_sp), torch.sin(yaw_sp), zero], dim=-1)
+    b2 = torch.linalg.cross(b3, xc, dim=-1)
+    b2 = b2 / torch.clamp_min(torch.linalg.norm(b2, dim=-1, keepdim=True),
+                              1e-6)
+    b1 = torch.linalg.cross(b2, b3, dim=-1)
+    quat_sp = rot.matrix_to_quat(torch.stack([b1, b2, b3], dim=-1))
+    thrust_norm = torch.clamp(f_norm * g.mass / (4.0 * g.thrust_scale),
+                              g.thrust_min, g.thrust_max)
+    return quat_sp, thrust_norm
+
+
+def velocity_control(g: CascadeGains, cs: CascadeState, vel: torch.Tensor,
+                     vel_sp: torch.Tensor, yaw_sp: torch.Tensor, dt: float):
+    """Velocity PID -> (quat_sp, thrust_norm, new controller state)."""
+    err = vel_sp - vel
+    kw = dict(dtype=err.dtype, device=err.device)
+    kp = torch.tensor(g.vel_p, **kw)
+    ki = torch.tensor(g.vel_i, **kw)
+    kd = torch.tensor(g.vel_d, **kw)
+    vel_int = torch.clamp(cs.vel_int + err * dt * ki,
+                          -g.vel_int_lim, g.vel_int_lim)
+    d_term = (err - cs.prev_vel_err) / dt * kd
+    acc_sp = kp * err + vel_int + d_term
+    quat_sp, thrust_norm = _accel_to_att_thrust(g, acc_sp, yaw_sp)
+    return quat_sp, thrust_norm, cs._replace(vel_int=vel_int,
+                                             prev_vel_err=err)
+
+
 def run(mode: str, g: CascadeGains, cs: CascadeState,
         root_state: torch.Tensor, action: torch.Tensor, dt: float = 0.01):
     """root_state [N,13] + mode action -> (rotor cmds [N,4], state)."""
-    if mode != "rate":
-        if mode not in CONTROL_MODES:
-            raise ValueError(f"unknown control mode {mode!r}; "
-                             f"expected {CONTROL_MODES}")
-        raise NotImplementedError(
-            f"ctl_mode {mode!r} is not ported yet: ROADMAP.md queue A "
-            f"item 3b (px4 pos/vel/atti/prop)")
+    pos = root_state[..., 0:3]
     quat = rot.quat_canonical(root_state[..., 3:7])
+    vel = root_state[..., 7:10]
     angvel = root_state[..., 10:13]
-    thrust = torch.clamp(action[..., 3], g.thrust_min, g.thrust_max)
-    return rate_control(g, cs, quat, angvel, action[..., 0:3], thrust, dt)
+
+    if mode == "prop":
+        return torch.clamp(action, 0.0, 1.0), cs
+
+    if mode == "rate":
+        thrust = torch.clamp(action[..., 3], g.thrust_min, g.thrust_max)
+        return rate_control(g, cs, quat, angvel, action[..., 0:3], thrust,
+                            dt)
+
+    if mode == "atti":
+        q_sp = rot.quat_normalize(rot.wxyz_to_xyzw(action[..., 0:4]))
+        thrust = torch.clamp(action[..., 4], g.thrust_min, g.thrust_max)
+        rate_sp = attitude_rates(g, quat, q_sp)
+        return rate_control(g, cs, quat, angvel, rate_sp, thrust, dt)
+
+    if mode == "vel":
+        # the yaw setpoint integrates the commanded yaw rate
+        yaw_rate = action[..., 3]
+        yaw_sp = rot.wrap_angle(cs.yaw_sp + yaw_rate * dt)
+        cs = cs._replace(yaw_sp=yaw_sp)
+        quat_sp, thrust, cs = velocity_control(g, cs, vel, action[..., 0:3],
+                                               yaw_sp, dt)
+        rate_sp = attitude_rates(g, quat, quat_sp, yaw_rate_ff=yaw_rate)
+        return rate_control(g, cs, quat, angvel, rate_sp, thrust, dt)
+
+    if mode == "pos":
+        # absolute position and yaw setpoints; the velocity setpoint is
+        # limited as PX4's MPC_*_VEL_MAX
+        kp = torch.tensor(g.pos_p, dtype=pos.dtype, device=pos.device)
+        vel_sp = kp * (action[..., 0:3] - pos)
+        vxy = vel_sp[..., :2]
+        vxy_n = torch.linalg.norm(vxy, dim=-1, keepdim=True)
+        vxy = vxy * torch.clamp_max(g.vel_max_xy / torch.clamp_min(vxy_n,
+                                                                   1e-6),
+                                    1.0)
+        vz = torch.clamp(vel_sp[..., 2], -g.vel_max_dn, g.vel_max_up)
+        vel_sp = torch.cat([vxy, vz[..., None]], dim=-1)
+        quat_sp, thrust, cs = velocity_control(g, cs, vel, vel_sp,
+                                               action[..., 3], dt)
+        rate_sp = attitude_rates(g, quat, quat_sp)
+        return rate_control(g, cs, quat, angvel, rate_sp, thrust, dt)
+
+    raise ValueError(f"unknown control mode {mode!r}; expected "
+                     f"{CONTROL_MODES}")
 
 
 def num_actions(mode: str) -> int:
+    """5 in atti (a quaternion and the thrust), else 4."""
     return 5 if mode == "atti" else 4
 
 
 def action_limits(mode: str):
-    """(lower, upper) action limits; rate mode: +-6 rad/s, thrust [0, 1]."""
-    if mode != "rate":
-        raise NotImplementedError(
-            f"ctl_mode {mode!r} is not ported yet: ROADMAP.md queue A "
-            f"item 3b (px4 pos/vel/atti/prop)")
-    return np.array([-6.0, -6, -6, 0]), np.array([6.0, 6, 6, 1])
+    """Default (lower, upper) action limits per mode; a task overrides a
+    mode through ``QuadEnvCore.action_limit_overrides``."""
+    if mode == "pos":
+        return np.array([-3.0, -3, -3, -6]), np.array([3.0, 3, 3, 6])
+    if mode == "vel":
+        return np.array([-6.0] * 4), np.array([6.0] * 4)
+    if mode == "atti":
+        return np.array([-1, -1, -1, -1, 0.0]), np.array([1, 1, 1, 1, 1.0])
+    if mode == "rate":
+        return np.array([-6.0, -6, -6, 0]), np.array([6.0, 6, 6, 1])
+    if mode == "prop":
+        return np.array([0.0] * 4), np.array([1.0] * 4)
+    raise ValueError(f"unknown control mode {mode!r}")

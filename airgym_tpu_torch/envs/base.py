@@ -95,10 +95,6 @@ class QuadEnvCore:
     obs_is_dict = False
 
     def __init__(self, cfg: BaseEnvCfg, device: torch.device):
-        if cfg.ctl_mode != "rate":
-            raise NotImplementedError(
-                f"ctl_mode {cfg.ctl_mode!r} is not ported yet: ROADMAP.md "
-                f"queue A item 3b (px4 pos/vel/atti/prop)")
         self.cfg = cfg
         self.device = device
         self.params = qd.x152b_params(dt=cfg.dt, motor_tau=cfg.motor_tau)
@@ -116,10 +112,11 @@ class QuadEnvCore:
         return px4.action_limits(mode)
 
     def remap_actions(self, actions: torch.Tensor) -> torch.Tensor:
-        """[-1,1] policy actions -> controller units: thrust 0.5+0.5a, then
-        the per-mode limits."""
-        thrust = 0.5 + 0.5 * actions[..., -1:]
-        actions = torch.cat([actions[..., :-1], thrust], dim=-1)
+        """[-1,1] policy actions -> controller units: the thrust channel
+        0.5+0.5a in rate and atti only, then the per-mode limits."""
+        if self.cfg.ctl_mode in ("rate", "atti"):
+            thrust = 0.5 + 0.5 * actions[..., -1:]
+            actions = torch.cat([actions[..., :-1], thrust], dim=-1)
         return torch.minimum(torch.maximum(actions, self._act_lo),
                              self._act_hi)
 

@@ -69,18 +69,25 @@ class Hovering(base.QuadEnvCore):
         return HoveringState(core=core), out
 
     def _reward(self, root, actions, pre_actions, cmd_thrusts):
+        mode = self.cfg.ctl_mode
         effort_r = base.effort_reward(cmd_thrusts)
-        cont_r, thrust_r = base.continuity_rewards(self.cfg.ctl_mode,
-                                                   actions, pre_actions)
+        cont_r, thrust_r = base.continuity_rewards(mode, actions,
+                                                   pre_actions)
         pos_r, vel_dir_r, rel = base.pos_reward_terms(root, self.target_pos)
         yaw_r, spin_r, ups_r, ups_z = base.attitude_reward_terms(
             root, self.target_yaw)
-        reward = (cont_r + effort_r + thrust_r + pos_r
-                  + pos_r * (vel_dir_r + ups_r + spin_r + yaw_r))
+        shaped = pos_r * (vel_dir_r + ups_r + spin_r + yaw_r)
+        if thrust_r is None:                      # pos, vel, prop
+            reward = cont_r + effort_r + pos_r + shaped
+            thrust_r = torch.zeros_like(effort_r)
+        else:
+            reward = cont_r + effort_r + thrust_r + pos_r + shaped
         die = torch.linalg.norm(rel, dim=-1) > 4.0
         die |= rel[..., 2] < -2.0
         die |= rel[..., 2] > 2.0
         die |= ups_z < 0.0
+        if mode == "atti":
+            die |= actions[..., 0] < 0.0          # commanded qw < 0
         info = {
             "continous_action_reward": cont_r,
             "effort_reward": effort_r,

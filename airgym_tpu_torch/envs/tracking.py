@@ -118,11 +118,17 @@ class Tracking(base.QuadEnvCore):
     def _reward(self, root, ref_now, actions, pre_actions, cmd_thrusts):
         """Hovering's terms against the moving reference, with the gains
         1.8 / 4 / 2 and other continuity weights."""
+        mode = self.cfg.ctl_mode
         effort_r = base.effort_reward(cmd_thrusts)
         diff = actions - pre_actions
-        cont_r = (0.1 * torch.exp(-torch.linalg.norm(diff[..., :-1], dim=-1))
-                  + 0.5 / (1.0 + torch.square(2.0 * diff[..., -1])))
-        thrust_r = 0.1 * (1.0 - torch.abs(0.1533 - actions[..., -1]))
+        if mode in ("pos", "vel", "prop"):
+            cont_r = 0.2 * torch.exp(-torch.linalg.norm(diff, dim=-1))
+            thrust_r = None
+        else:
+            cont_r = (0.1 * torch.exp(-torch.linalg.norm(diff[..., :-1],
+                                                         dim=-1))
+                      + 0.5 / (1.0 + torch.square(2.0 * diff[..., -1])))
+            thrust_r = 0.1 * (1.0 - torch.abs(0.1533 - actions[..., -1]))
 
         dist = torch.linalg.norm(ref_now - root[:, 0:3], dim=-1)
         dist_r = 1.0 / (1.0 + torch.square(1.8 * dist))
@@ -134,9 +140,15 @@ class Tracking(base.QuadEnvCore):
         ups = rot.quat_axis(root[:, 3:7], 2)[:, 2]
         ups_r = torch.square((ups + 1.0) / 2.0)
 
-        reward = (cont_r + effort_r + thrust_r + dist_r
-                  + dist_r * (spin_r + yaw_r + ups_r))
+        shaped = dist_r * (spin_r + yaw_r + ups_r)
+        if thrust_r is None:
+            reward = cont_r + effort_r + dist_r + shaped
+            thrust_r = torch.zeros_like(dist)
+        else:
+            reward = cont_r + effort_r + thrust_r + dist_r + shaped
         die = dist > 1.0
+        if mode == "atti":
+            die |= actions[..., 0] < 0.0          # commanded qw < 0
         info = {
             "dist_norm": dist,
             "dist_reward": dist_r,

@@ -35,8 +35,9 @@ class FusedHoveringPPO(ppo_mod.PPO):
         if task.task_name != self.fused_task or task.cfg.ctl_mode != "rate":
             raise NotImplementedError(
                 f"{type(self).__name__} covers {self.fused_task} / rate "
-                f"only, got {task.task_name} / {task.cfg.ctl_mode}: other "
-                f"modes are ROADMAP.md queue A item 3b")
+                f"only, got {task.task_name} / {task.cfg.ctl_mode}: its "
+                f"kernels run the rate cascade; other modes train with the "
+                f"plain rl/ppo.PPO, as the runner picks it")
         if task.cfg.num_envs % fr.TILE:
             raise NotImplementedError(
                 f"num_envs={task.cfg.num_envs} is not a multiple of "

@@ -107,10 +107,31 @@ Phases, each of which exits non-zero on failure:
      (the bf16 forward at B = 4096 and 609 and the bf16 backward beside
      the scalar kernels' times they replaced, with their workspace bytes),
      and the cuDNN stack (impl='auto') at the same
-     shapes as a yardstick, and print one JSON line listing every ported
-     kernel.
+     shapes as a yardstick;
+ 23. train Hovering to its YAML's end through the CLI (4096 envs, all 200
+     epochs, 50 logged points; 1 rollout + 1 update launch per epoch),
+     print its reward at the 1st, 10th, 25th and last logged points beside
+     the reference's curve at the same frames
+     (benchmarks/convergence/hovering.json), check the run's
+     events.jsonl, then --play its .pth at 4096 envs for 1000 steps (no
+     kernel launched): games, reward per game, env-steps/s;
+ 24. train Balloon (configs/ppo_balloon.yaml at 4096 envs, 200 epochs)
+     with the fused trainer through the runner, then --play it at the
+     reference eval's shape (1024 envs x 2000 steps, seed 7;
+     benchmarks/convergence/balloon_eval.json): success >= 0.30 over >= 500
+     games, printed beside the reference's 0.4883 over 37,176;
+ 25. --play phase 13's Planning checkpoint at 256 envs, seed 7, 400 steps
+     (planning_eval.json's envs and seed) with the render + process
+     kernel's counter set to 0 before and read after: the launches the
+     env's render cadence gives, nothing else; env-steps/s;
+ 26. play Hovering at 4096 envs for 100 steps with a fresh policy in each
+     of pos, vel, atti (5 actions) and prop, then train it in vel for 2
+     epochs through the CLI (the plain trainer: no kernel launched) and
+     --play that checkpoint for 100 steps;
+and print one JSON line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import contextlib
 import ctypes
 import json
 import math
@@ -213,6 +234,18 @@ CNN_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 CUDNN_WORDS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                "nchwtonhwc", "nhwctonchw", "winograd", "convolve")
 
+
+# the reference's own training outcomes, set beside the port's (results
+# of training, not speeds)
+CONVERGENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "convergence")
+# the Balloon eval's gate: success rate over at least this many games (the
+# reference's own curve passed 0.43 by 7.9 M frames, balloon_long.json;
+# an untrained policy scores near 0)
+BALLOON_SUCCESS_MIN, BALLOON_GAMES_MIN = 0.30, 500
+HOVER_PLAY_STEPS = 1000
+PLANNING_PLAY_ENVS, PLANNING_PLAY_STEPS = 256, 400
+MODE_PLAY_STEPS, MODE_TRAIN_EPOCHS = 100, 2
 
 T0 = time.time()
 
@@ -866,10 +899,236 @@ def depth_checks(ra, rc, dev):
     return max(errs), {"maplanning": inp_ma, "depthgen": inp_dg}
 
 
+@contextlib.contextmanager
+def cwd(path):
+    """Run the CLI from ``path``: its runs land in ``path/runs``."""
+    os.makedirs(path, exist_ok=True)
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def launched(kernels):
+    """{kernel variant: launches} of every kernel, the zeros left out."""
+    return {f"{k.name}/{v}": n for k in kernels
+            for v, n in k.launches.items() if n}
+
+
+def timed_cli(cli, argv):
+    """cli.run_cli(argv) and its seconds up to a device sync."""
+    t0 = time.time()
+    out = cli.run_cli(argv)
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def play_checks(out, tag, n_envs):
+    check(out["games"] >= 1 and math.isfinite(out["mean_reward"]),
+          f"{tag} play: {out}")
+    print(f"[play {tag}] {n_envs} envs x {out['steps']} steps: games "
+          f"{out['games']}, reward per game {out['mean_reward']:.4f}"
+          + (f", success_rate {out['success_rate']:.4f}"
+             if "success_rate" in out else ""), flush=True)
+
+
+def train_hovering_to_the_end(cli, fr, fu, kernels, run_root):
+    """Phase 23: the default Hovering run through the CLI to its YAML's
+    end, beside the reference's curve, then played."""
+    with open(os.path.join(CONVERGENCE, "hovering.json")) as f:
+        ref = json.load(f)["reward_curve"]
+    reset_counts(kernels)
+    with cwd(run_root):
+        (ts, info), train_s = timed_cli(cli, [
+            "--train", "--task", "hovering", "--num_envs", "4096",
+            "--seed", "42"])
+        got = launched(kernels)
+        epochs = info["epochs"]
+        print(f"[train hovering 200] {epochs} epochs in {train_s:.2f} s "
+              f"({ts.frame} frames); launches {got}", flush=True)
+        check(got == {"fused_rollout/hovering": epochs,
+                      "fused_update/obs18": epochs} and epochs == 200,
+              f"hovering to the end: {epochs} epochs, launches {got}")
+        hist = info["history"]
+        check(len(hist) == len(ref) == 50,
+              f"hovering: {len(hist)} logged points, the reference "
+              f"{len(ref)}")
+        for row in hist:
+            check(all(math.isfinite(row[k]) for k in ("mean_reward", "loss",
+                                                      "kl", "lr")),
+                  f"hovering epoch {row['epoch']}: not finite: {row}")
+        for i in (0, 9, 24, len(hist) - 1):
+            print(f"[train hovering 200] logged point {i + 1}: frame "
+                  f"{hist[i]['frames']} mean_reward "
+                  f"{hist[i]['mean_reward']:.3f}; the reference at frame "
+                  f"{ref[i][0]}: {ref[i][1]}", flush=True)
+        with open(os.path.join(info["run_dir"], "events.jsonl")) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+        check({"rewards/frame", "losses/a_loss"} <= tags
+              and any(t.startswith("Episode/") for t in tags),
+              f"hovering events.jsonl tags: {sorted(tags)}")
+        print(f"[train hovering 200] events.jsonl: {len(tags)} tags, "
+              f"{sorted(t for t in tags if t.startswith('Episode/'))}",
+              flush=True)
+        pth = info["checkpoint"][:-3] + ".pth"
+        check(os.path.basename(pth) == "last_ppo_hovering.pth", pth)
+        reset_counts(kernels)
+        out, play_s = timed_cli(cli, [
+            "--play", "--task", "hovering", "--num_envs", "4096",
+            "--checkpoint", pth, "--max_steps", str(HOVER_PLAY_STEPS)])
+    check(not launched(kernels), f"hovering play launched "
+                                 f"{launched(kernels)}")
+    play_checks(out, "hovering", 4096)
+    print(f"[play hovering] {4096 * out['steps'] / play_s:.0f} env-steps/s "
+          f"({play_s:.2f} s with set-up and restore)", flush=True)
+
+
+def train_and_eval_balloon(cli, runner_mod, fr, fu, kernels, run_root,
+                           b_yaml):
+    """Phase 24: Balloon's 200 epochs with the fused trainer, evaluated at
+    the reference eval's shape."""
+    with open(os.path.join(CONVERGENCE, "balloon_eval.json")) as f:
+        ref = json.load(f)
+    reset_counts(kernels)
+    t0 = time.time()
+    _, info = runner_mod.Runner().load(b_yaml).run_train(
+        {"task": "balloon", "ctl_mode": "rate", "device": "cuda",
+         "run_root": run_root, "num_envs": 4096, "seed": 42})
+    torch.cuda.synchronize()
+    got = launched(kernels)
+    epochs = info["epochs"]
+    hist = info["history"]
+    print(f"[train balloon 200] {epochs} epochs in {time.time() - t0:.2f} s;"
+          f" launches {got}; success_rate at logged points 1 / 10 / 25 / "
+          f"last: " + ", ".join(f"{hist[i]['success_rate']:.4f}"
+                                for i in (0, 9, 24, len(hist) - 1)),
+          flush=True)
+    check(epochs == 200 and got == {"fused_rollout/balloon": epochs,
+                                    "fused_update/obs18": epochs},
+          f"balloon: {epochs} epochs, launches {got}")
+    check(all(math.isfinite(r["mean_reward"]) for r in hist),
+          "balloon: a reward is not finite")
+    reset_counts(kernels)
+    with cwd(run_root):
+        out, play_s = timed_cli(cli, [
+            "--play", "--task", "balloon", "--num_envs",
+            str(ref["num_envs"]), "--max_steps", str(ref["steps"]),
+            "--seed", str(ref["seed"]),
+            "--checkpoint", info["checkpoint"][:-3] + ".pth"])
+    check(not launched(kernels), f"balloon play launched "
+                                 f"{launched(kernels)}")
+    play_checks(out, "balloon", ref["num_envs"])
+    rate = ref["num_envs"] * out["steps"] / play_s
+    print(f"[play balloon] success_rate {out['success_rate']:.4f} over "
+          f"{out['games']} games; the reference's eval {ref['success_rate']}"
+          f" over {ref['games']} games; {rate:.0f} env-steps/s "
+          f"({play_s:.2f} s with set-up)", flush=True)
+    check(out["success_rate"] >= BALLOON_SUCCESS_MIN
+          and out["games"] >= BALLOON_GAMES_MIN,
+          f"balloon eval: success {out['success_rate']:.4f} over "
+          f"{out['games']} games, need >= {BALLOON_SUCCESS_MIN} over >= "
+          f"{BALLOON_GAMES_MIN}")
+
+
+def play_planning(cli, rc, kernels, run_root, p_pth, horizon):
+    """Phase 25: the Planning checkpoint played through B6."""
+    from airgym_tpu_torch.envs.planning import PlanningCfg
+    with open(os.path.join(CONVERGENCE, "planning_eval.json")) as f:
+        ref = json.load(f)
+    check(ref["num_envs"] == PLANNING_PLAY_ENVS, "planning_eval.json envs")
+    ce = PlanningCfg().cam_every
+    # the env renders on every step whose counter is a multiple of
+    # cam_every: the Player's trainer.init steps the counter to cam_every
+    # (frame dedup aligns it when cam_every divides the horizon: one
+    # render), then the Player boots a fresh batch (counter 1) and plays
+    # counters 2 .. 1 + steps
+    want_init = 1 if horizon % ce == 0 else 0
+    want_play = (1 + PLANNING_PLAY_STEPS) // ce
+    reset_counts(kernels)
+    with cwd(run_root):
+        out, play_s = timed_cli(cli, [
+            "--play", "--task", "planning", "--num_envs",
+            str(PLANNING_PLAY_ENVS), "--seed", str(ref["seed"]),
+            "--max_steps", str(PLANNING_PLAY_STEPS), "--checkpoint", p_pth])
+    got = launched(kernels)
+    n = rc.KERNEL.launches.get("render_process", 0)
+    print(f"[play planning] render_process launches {n} (the cadence: "
+          f"{want_init} in the Player's trainer.init + {want_play} in "
+          f"{PLANNING_PLAY_STEPS} steps at cam_every {ce}); all launches "
+          f"{got}", flush=True)
+    check(got == {"render_process/render_process": want_init + want_play},
+          f"planning play launches {got}, expected "
+          f"{want_init + want_play} render_process")
+    play_checks(out, "planning", PLANNING_PLAY_ENVS)
+    print(f"[play planning] {PLANNING_PLAY_ENVS * out['steps'] / play_s:.0f}"
+          f" env-steps/s ({play_s:.2f} s with set-up and restore)",
+          flush=True)
+    return n
+
+
+def play_control_modes(cli, runner_mod, kernels, run_root, h_yaml):
+    """Phase 26: Hovering in pos / vel / atti / prop, then trained and
+    played in vel through the CLI."""
+    from airgym_tpu_torch.rl import ppo as ppo_mod
+    for mode in ("pos", "vel", "atti", "prop"):
+        reset_counts(kernels)
+        task, trainer, _ = runner_mod.Runner().load(h_yaml).build(
+            {"task": "hovering", "ctl_mode": mode, "num_envs": 4096,
+             "device": "cuda", "seed": 1})
+        check(type(trainer) is ppo_mod.PPO,
+              f"{mode}: the runner picked {type(trainer).__name__}")
+        player = runner_mod.Player(task, trainer)
+        n_act = player.ts.model.mu.out_features
+        check(n_act == (5 if mode == "atti" else 4),
+              f"{mode}: the policy has {n_act} outputs")
+        t0 = time.time()
+        out = player.run(max_steps=MODE_PLAY_STEPS, chunk=MODE_PLAY_STEPS)
+        dt = time.time() - t0
+        check(not launched(kernels), f"{mode} play launched "
+                                     f"{launched(kernels)}")
+        play_checks(out, f"hovering {mode}", 4096)
+        print(f"[play hovering {mode}] {n_act} actions; "
+              f"{4096 * out['steps'] / dt:.0f} env-steps/s", flush=True)
+    cfg = json.loads(json.dumps(h_yaml))
+    cfg["params"]["config"].update(max_epochs=MODE_TRAIN_EPOCHS,
+                                   save_best_after=1)
+    path = os.path.join(run_root, "ppo_hovering_vel.yaml")
+    with open(path, "w") as f:
+        json.dump(cfg, f)            # JSON is YAML
+    reset_counts(kernels)
+    with cwd(run_root):
+        (ts, info), train_s = timed_cli(cli, [
+            "--train", "--task", "hovering", "--ctl_mode", "vel", "--file",
+            path, "--num_envs", "4096", "--seed", "42"])
+        for row in info["history"]:
+            check(all(math.isfinite(row[k]) for k in ("mean_reward", "loss",
+                                                      "kl", "lr")),
+                  f"hovering vel epoch {row['epoch']}: {row}")
+            print(f"[train hovering vel] epoch {row['epoch']}: mean_reward "
+                  f"{row['mean_reward']:.4f} loss {row['loss']:.5f} kl "
+                  f"{row['kl']:.3e} epoch_s {row['seconds']:.3f}",
+                  flush=True)
+        check(info["epochs"] == MODE_TRAIN_EPOCHS
+              and float(ts.adam["count"][0]) > 0,
+              f"hovering vel: {info['epochs']} epochs")
+        out, _ = timed_cli(cli, [
+            "--play", "--task", "hovering", "--ctl_mode", "vel", "--file",
+            path, "--num_envs", "4096", "--max_steps", str(MODE_PLAY_STEPS),
+            "--checkpoint", info["checkpoint"][:-3] + ".pth"])
+    check(not launched(kernels), f"hovering vel train / play launched "
+                                 f"{launched(kernels)}")
+    print(f"[train hovering vel] {MODE_TRAIN_EPOCHS} epochs with the plain "
+          f"trainer in {train_s:.2f} s, no kernel launched", flush=True)
+    play_checks(out, "hovering vel (trained)", 4096)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
 
+    from airgym_tpu_torch import cli
     from airgym_tpu_torch import envs
     from airgym_tpu_torch.experiments import fused_cnn as fc
     from airgym_tpu_torch.kernels import build
@@ -1548,6 +1807,26 @@ def main():
               f"{cuda_time_ms(fwd4, 5):.3f} ms, forward + backward B=609 "
               f"{cuda_time_ms(step6, 5):.3f} ms", flush=True)
         del enc, params
+
+    # ---- 23. Hovering to the YAML's end, then played -------------------------
+    phase(23)
+    train_hovering_to_the_end(cli, fr, fu, kernels, run_root)
+
+    # ---- 24. Balloon trained 200 epochs, evaluated as the reference was ------
+    phase(24)
+    train_and_eval_balloon(cli, runner_mod, fr, fu, kernels, run_root,
+                           load_cfg("balloon"))
+
+    # ---- 25. the Planning checkpoint played through the render kernel --------
+    phase(25)
+    play_planning(cli, rc, kernels, run_root,
+                  p_info["checkpoint"][:-3] + ".pth",
+                  int(p_yaml["params"]["config"]["horizon_length"]))
+
+    # ---- 26. the control modes ------------------------------------------------
+    phase(26)
+    play_control_modes(cli, runner_mod, kernels, run_root, load_cfg("hovering"))
+    print(f"[phases 23-26] done at {time.time() - T0:.1f} s", flush=True)
 
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]

@@ -159,8 +159,12 @@ def test_obs_noise_scales():
 def test_make_task_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tenvs.make_task("customized", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenvs.make_task("hovering", ctl_mode="pos", device="cpu")
+    # every control mode of the reference is ported; an unknown one raises
+    for mode in ("pos", "vel", "atti", "prop"):
+        assert tenvs.make_task("hovering", ctl_mode=mode,
+                               device="cpu").cfg.ctl_mode == mode
+    with pytest.raises(ValueError, match="unknown control mode"):
+        tenvs.make_task("hovering", ctl_mode="thrust", device="cpu")
     with pytest.raises(KeyError):
         tenvs.make_task("no_such_task", device="cpu")
     # entry points default to cuda and never fall back to the CPU

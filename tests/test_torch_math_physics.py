@@ -127,10 +127,20 @@ def test_rate_cascade_matches_jax():
     for f in jr._fields:
         np.testing.assert_allclose(getattr(tr, f).numpy(),
                                    np.asarray(getattr(jr, f)), atol=1e-5)
+    # the other modes from the same states and controller state (their
+    # carried steps: tests/test_torch_control_modes.py)
     for mode in ("pos", "vel", "atti", "prop"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpx4.run(mode, tpx4.CascadeGains(), ts, torch.from_numpy(s),
-                     torch.from_numpy(act), 0.01)
+        lo, hi = jpx4.action_limits(mode)
+        a = rng.uniform(lo, hi, (N, len(lo))).astype(np.float32)
+        jc, jm = jpx4.run(mode, g, js, jnp.asarray(s), jnp.asarray(a), 0.01)
+        tc, tm = tpx4.run(mode, tpx4.CascadeGains(), ts, torch.from_numpy(s),
+                          torch.from_numpy(a), 0.01)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5,
+                                   err_msg=mode)
+        for f in jm._fields:
+            np.testing.assert_allclose(getattr(tm, f).numpy(),
+                                       np.asarray(getattr(jm, f)), atol=1e-5,
+                                       err_msg=f"{mode} {f}")
 
 
 def test_golden_rate_trajectory_and_hover_command():
