@@ -3,6 +3,7 @@
     python -m airgym_tpu_torch.cli --train --task planning \
         [--ctl_mode rate] [--num_envs N] [--seed S] [--file cfg.yaml] \
         [--experiment_name NAME] [--checkpoint path] [--device cuda|cpu]
+        [--transfer_checkpoint src.pt --transfer_old_obs_dim D]
     python -m airgym_tpu_torch.cli --play --task hovering \
         --checkpoint runs/.../nn/last_ppo_hovering.pth \
         [--max_steps 1000] [--record_dir DIR] [--device cuda|cpu]
@@ -57,6 +58,12 @@ def get_args(argv=None):
                         "depth.gif, episode.npz)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--transfer_checkpoint", default=None,
+                   help="--train: warm-start from this native .pt of "
+                        "another obs-vector width (the robot-count "
+                        "curriculum)")
+    p.add_argument("--transfer_old_obs_dim", type=int, default=None,
+                   help="the obs-vector width of --transfer_checkpoint")
     return p.parse_args(argv)
 
 
@@ -94,7 +101,8 @@ def run_cli(argv=None):
         "ctl_mode": args.ctl_mode, "num_envs": args.num_envs,
         "seed": args.seed, "checkpoint": args.checkpoint,
         "max_steps": args.max_steps, "record_dir": args.record_dir,
-        "device": args.device})
+        "device": args.device, "transfer_checkpoint": args.transfer_checkpoint,
+        "transfer_old_obs_dim": args.transfer_old_obs_dim})
 
 
 def main(argv=None):

@@ -3,6 +3,10 @@
 Ported: Hovering, Balloon, Tracking, Planning, Avoid, MAPlanning and
 DepthGen. Customized is still to come (ROADMAP.md queue A item 11), and
 ``make_task`` refuses it.
+
+``make_task(name, ...)`` returns the functional task whose ``step`` the
+trainers call; ``make_env(name, seed, ...)`` the stateful reference-API
+wrapper (``base.TaskWrapper``) over it.
 """
 from __future__ import annotations
 
@@ -46,3 +50,9 @@ def make_task(name: str, ctl_mode: str = "rate", num_envs: int | None = None,
         kw["num_envs"] = num_envs
     cfg = dataclasses.replace(cfg_cls(), **kw)
     return task_cls(cfg, device_mod.resolve(device))
+
+
+def make_env(name: str, seed: int = 0, **kw):
+    """``base.TaskWrapper`` over ``make_task(name, **kw)``."""
+    from airgym_tpu_torch.envs.base import TaskWrapper
+    return TaskWrapper(make_task(name, **kw), seed=seed)

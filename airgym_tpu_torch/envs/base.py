@@ -246,3 +246,44 @@ def attitude_reward_terms(root: torch.Tensor, target_yaw: torch.Tensor):
     ups = rot.quat_axis(q, 2)[:, 2]
     ups_r = torch.square((ups + 1.0) / 2.0)
     return yaw_r, spin_r, ups_r, ups
+
+
+# --------------------------------------------------------------------------
+# stateful wrapper with the reference env API
+
+
+class TaskWrapper:
+    """Reference-compatible stateful facade over a functional task.
+
+    ``step(actions)`` returns (obs, priv_obs, rew, reset, extras) with
+    extras = {'time_outs', 'item_reward_info'}, as the reference's tasks
+    do; ``reset()`` re-draws every env from the wrapper's generator (the
+    state's own RNG) and takes a zero-action step. Rows are the task's
+    actors: ``num_envs``, or ``num_envs * num_robots`` for a task that
+    flattens its robot axis (MAPlanning's ``flat_n``)."""
+
+    def __init__(self, task, seed: int = 0):
+        self.task = task
+        self.cfg = task.cfg
+        self.device = task.device
+        self.num_envs = task.cfg.num_envs
+        self.num_rows = getattr(task, "flat_n", task.cfg.num_envs)
+        self.num_actions = task.cfg.num_actions
+        self.num_obs = task.num_obs
+        self.generator = torch.Generator(device=task.device)
+        self.generator.manual_seed(seed)
+        self.state = task.initial_state(self.generator)
+
+    def step(self, actions):
+        actions = torch.as_tensor(actions, dtype=self.cfg.dtype,
+                                  device=self.device)
+        self.state, out = self.task.step(self.state, actions, self.generator)
+        extras = {"time_outs": out.timeout, "item_reward_info": out.info}
+        return out.obs, out.priv_obs, out.reward, out.reset, extras
+
+    def reset(self):
+        self.state = self.task.initial_state(self.generator)
+        zero = torch.zeros((self.num_rows, self.num_actions),
+                           dtype=self.cfg.dtype, device=self.device)
+        obs, priv, _, _, _ = self.step(zero)
+        return obs, priv

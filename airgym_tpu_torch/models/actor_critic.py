@@ -1,23 +1,33 @@
 """Actor-critic model (counterpart of airgym_tpu/models/actor_critic.py).
 
 Continuous A2C model with a global state-independent log-std
-(``fixed_sigma: True``), a shared MLP trunk ([64,128,64] elu by default),
-and mu / value heads initialized at 0.1x scale. Parameter names follow
-the reference .pth keys: ``actor_mlp.layers.N.{weight,bias}``, ``mu.*``,
-``value_head.*``, ``logstd``; a torch Linear weight is [out, in], which
-is also the feature-major layout the fused kernels read.
+(``fixed_sigma: True`` by default), a shared MLP trunk ([64,128,64] elu
+by default), and mu / value heads initialized at 0.1x scale. Parameter
+names follow the reference .pth keys: ``actor_mlp.layers.N.{weight,
+bias}``, ``mu.*``, ``value_head.*``, ``logstd``; a torch Linear weight is
+[out, in], which is also the feature-major layout the fused kernels read.
 
-Camera tasks add the CNN image encoder (``image_encoder='cnn'``): the
-depth image [B, 1, W, H] is normalised per pixel, encoded to 30 features,
-and the MLP reads [observation ++ features], normalised by the
-'observation' running stats. Its keys are ``actor_cnn.features.{0,3,6}``
-(convs), ``.features.{2,5,8}`` (batch norms) and ``actor_cnn.fc``.
-``cnn_impl='pallas'`` runs the conv stack in the fused kernels of
-``experiments/fused_cnn.py`` on the same parameters.
+Camera tasks add an image encoder (``image_encoder``): the depth image
+[B, 1, W, H] is normalised per pixel and encoded, and the MLP reads
+[observation ++ features], normalised by the 'observation' running
+stats. 'cnn' (``actor_cnn``, 30 features): keys
+``actor_cnn.features.{0,3,6}`` (convs), ``.features.{2,5,8}`` (batch
+norms) and ``actor_cnn.fc``; ``cnn_impl='pallas'`` runs the conv stack in
+the fused kernels of ``experiments/fused_cnn.py`` on the same parameters.
+'vae' (``actor_enc``, ``vae_latent_dim`` features, ``models/vae.py``) and
+'resnet' (``actor_resnet``, ``image_feature_dim`` features,
+``models/resnet.py``) are frozen where the JAX package stops the
+gradient: the whole VAE encoder, the ResNet's backbone (its ``fc``
+trains). Their parameters have ``requires_grad`` off, and the trainer's
+Adam leaves them out (JAX's Adam sees zero gradients there and leaves
+them unchanged; the clip's norm counts zeros).
 
-The ResNet / VAE encoders, the separate critic trunk, a state-dependent
-sigma and activations other than elu are ROADMAP.md queue A item 14 and
-12d and raise until then.
+Options of the reference ``network:`` block: ``activation`` (elu, relu,
+tanh, sigmoid, sin, none), ``separate`` (a ``critic_mlp`` trunk of the same
+units on the same normalised input feeds the value head; refused with
+images, as the JAX package refuses it) and ``fixed_sigma: False`` (a
+linear ``logstd`` head on the actor trunk, weight and bias zero, so sigma
+starts at exactly 1; its keys are ``logstd.weight`` / ``logstd.bias``).
 """
 from __future__ import annotations
 
@@ -30,6 +40,21 @@ from torch import nn
 from airgym_tpu_torch.experiments import fused_cnn
 
 CNN_IMPLS = ("auto", "xla", "pallas")
+IMAGE_ENCODERS = (None, "cnn", "vae", "resnet")
+# the encoders' module names, as in the JAX package's parameter tree
+ENCODER_MODULES = {"cnn": "actor_cnn", "vae": "actor_enc",
+                   "resnet": "actor_resnet"}
+SEPARATE_WITH_IMAGES = (
+    "separate: True with image observations is not supported (the "
+    "reference's own branch is broken, a2c_continuous_logstd_model.py:85-95)")
+ACTIVATIONS = {
+    "elu": nn.functional.elu,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "sin": torch.sin,
+    "none": lambda x: x,
+}
 
 
 def _lecun_normal_(w: torch.Tensor, scale: float,
@@ -45,17 +70,23 @@ def _lecun_normal_(w: torch.Tensor, scale: float,
 
 
 class MLP(nn.Module):
-    """elu trunk; ``layers.N`` are the reference's key names."""
+    """Trunk of ``activation`` after every layer; ``layers.N`` are the
+    reference's key names."""
 
-    def __init__(self, in_dim: int, units: Sequence[int]):
+    def __init__(self, in_dim: int, units: Sequence[int],
+                 activation: str = "elu"):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of "
+                             f"{sorted(ACTIVATIONS)}, got {activation!r}")
+        self.act = ACTIVATIONS[activation]
         dims = [in_dim, *units]
         self.layers = nn.ModuleList(nn.Linear(a, b)
                                     for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
-            x = nn.functional.elu(layer(x))
+            x = self.act(layer(x))
         return x
 
 
@@ -193,7 +224,8 @@ class CNNEncoder(nn.Module):
 
 
 class ActorCritic(nn.Module):
-    """Shared-trunk actor-critic with fixed log-std.
+    """Actor-critic with a shared (or ``separate``) trunk and a fixed (or
+    state-dependent) log-std.
 
     ``forward(obs, obs_rms)`` takes a raw [B, D] observation with its
     running stats, or a dict {'image': [B,1,W,H], 'observation': [B,D]}
@@ -206,37 +238,63 @@ class ActorCritic(nn.Module):
                  units: Sequence[int] = (64, 128, 64),
                  activation: str = "elu", separate: bool = False,
                  fixed_sigma: bool = True, image_encoder=None,
-                 image_feature_dim: int = 30,
+                 image_feature_dim: int = 30, vae_latent_dim: int = 64,
                  cnn_compute_dtype=torch.bfloat16, cnn_impl: str = "auto",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if separate or not fixed_sigma or activation != "elu":
-            raise NotImplementedError(
-                "only the shared-trunk fixed-sigma elu actor-critic is "
-                "ported: ROADMAP.md queue A item 12d (separate critic, "
-                "state-dependent sigma, other activations)")
-        if image_encoder not in (None, "cnn"):
-            raise NotImplementedError(
-                f"image encoder {image_encoder!r} is not ported yet: "
-                f"ROADMAP.md queue A item 14")
+        if image_encoder not in IMAGE_ENCODERS:
+            raise ValueError(f"image_encoder must be one of "
+                             f"{IMAGE_ENCODERS}, got {image_encoder!r}")
+        if separate and image_encoder is not None:
+            raise ValueError(SEPARATE_WITH_IMAGES)
         self.units = tuple(units)
+        self.activation = activation
+        self.separate = separate
+        self.fixed_sigma = fixed_sigma
         self.image_encoder = image_encoder
-        in_dim = num_obs
+        self.image_features = 0
         if image_encoder == "cnn":
             self.actor_cnn = CNNEncoder(feature_dim=image_feature_dim,
                                         compute_dtype=cnn_compute_dtype,
                                         generator=generator, impl=cnn_impl)
-            in_dim = num_obs + image_feature_dim
-        self.actor_mlp = MLP(in_dim, units)
+            self.image_features = image_feature_dim
+        elif image_encoder == "vae":
+            from airgym_tpu_torch.models.vae import VAEEncoder
+            self.actor_enc = VAEEncoder(vae_latent_dim, generator=generator)
+            self.image_features = vae_latent_dim
+        elif image_encoder == "resnet":
+            from airgym_tpu_torch.models.resnet import ResNet18Encoder
+            self.actor_resnet = ResNet18Encoder(image_feature_dim,
+                                                generator=generator)
+            self.image_features = image_feature_dim
+        in_dim = num_obs + self.image_features
+        self.actor_mlp = MLP(in_dim, units, activation)
+        trunks = [self.actor_mlp]
+        if separate:
+            self.critic_mlp = MLP(in_dim, units, activation)
+            trunks.append(self.critic_mlp)
         self.mu = nn.Linear(units[-1], num_actions)
         self.value_head = nn.Linear(units[-1], 1)
-        self.logstd = nn.Parameter(torch.zeros(num_actions))
-        for layer in self.actor_mlp.layers:
-            _lecun_normal_(layer.weight, 1.0, generator)
-            nn.init.zeros_(layer.bias)
+        if fixed_sigma:
+            self.logstd = nn.Parameter(torch.zeros(num_actions))
+        else:
+            self.logstd = nn.Linear(units[-1], num_actions)
+            nn.init.zeros_(self.logstd.weight)
+            nn.init.zeros_(self.logstd.bias)
+        for trunk in trunks:
+            for layer in trunk.layers:
+                _lecun_normal_(layer.weight, 1.0, generator)
+                nn.init.zeros_(layer.bias)
         for head in (self.mu, self.value_head):
             _lecun_normal_(head.weight, 0.1, generator)
             nn.init.zeros_(head.bias)
+
+    @property
+    def encoder(self) -> Optional[nn.Module]:
+        """The image encoder module, or None."""
+        if self.image_encoder is None:
+            return None
+        return getattr(self, ENCODER_MODULES[self.image_encoder])
 
     def encode_image(self, img: torch.Tensor, obs_rms=None) -> torch.Tensor:
         """Camera frames [B, 1, W, H] (any float dtype) -> features; the
@@ -244,12 +302,14 @@ class ActorCritic(nn.Module):
         img = img.to(torch.float32)
         if obs_rms is not None:
             img = obs_rms["image"].normalize(img)
-        return self.actor_cnn(img)
+        return self.encoder(img)
 
     def encode(self, obs, obs_rms=None):
         """-> (MLP input after normalization, pre-normalization vector,
         which the trainer feeds to the running stats)."""
         if isinstance(obs, dict):
+            if self.separate:
+                raise ValueError(SEPARATE_WITH_IMAGES)
             vec = obs["observation"]
             feat = obs.get("features")
             if feat is None:
@@ -265,10 +325,14 @@ class ActorCritic(nn.Module):
         x, prenorm = self.encode(obs, obs_rms)
         h = self.actor_mlp(x)
         mu = self.mu(h)
-        sigma = torch.exp(self.logstd) * torch.ones_like(mu)
+        if self.fixed_sigma:
+            sigma = torch.exp(self.logstd) * torch.ones_like(mu)
+        else:
+            sigma = torch.exp(self.logstd(h))
+        value = self.value_head(self.critic_mlp(x) if self.separate else h)
         if return_prenorm:
-            return mu, sigma, self.value_head(h), prenorm
-        return mu, sigma, self.value_head(h)
+            return mu, sigma, value, prenorm
+        return mu, sigma, value
 
 
 def neglogp(x, mu, sigma, logstd):

@@ -8,16 +8,23 @@
   ``last_ep_env_success``) where the task has them. The env state is not
   saved; a resumed run re-initializes its envs, as the reference does.
 * ``export_pth`` / ``import_pth``: the reference .pth layout
-  (``model`` = actor_mlp.layers.N.*, mu.*, value_head.*, logstd, the CNN's
+  (``model`` = actor_mlp.layers.N.*, critic_mlp.layers.N.* with
+  ``separate``, mu.*, value_head.*, logstd or, with ``fixed_sigma:
+  False``, logstd.weight / logstd.bias, the CNN's
   actor_cnn.features.{0,3,6} convs, .features.{2,5,8} batch norms and
   actor_cnn.fc, running_mean_std.* or, for dict obs,
   running_mean_std.running_mean_std.{image,observation}.*, and
   value_mean_std.*, stats in float64), which the JAX package's
   ``import_pth`` / ``export_pth`` also read and write. ``restore_pth``
-  resumes from one: parameters, stats, epoch and frame.
+  resumes from one: parameters, stats, epoch and frame. The VAE and
+  ResNet encoders are not in the .pth, as in the JAX package's: an
+  import keeps the model's own (the pretrained file's graft); the native
+  checkpoint carries them.
 * ``from_jax``: carries a JAX TrainState's parameters, running stats and
   Adam state, given as numpy pytrees, into the native format (flax HWIO
   conv kernels become torch OIHW).
+* ``transfer_obs_width``: the robot-count curriculum's warm start across
+  observation-vector widths.
 """
 from __future__ import annotations
 
@@ -28,7 +35,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from airgym_tpu_torch.models.actor_critic import ENCODER_MODULES
+from airgym_tpu_torch.rl.ppo import adam_init, trainable
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+
+# encoders the .pth leaves out (the JAX package's model_state_dict writes
+# only the CNN's)
+_PTH_LESS = tuple(f"{ENCODER_MODULES[e]}." for e in ("vae", "resnet"))
 
 
 def _rms_payload(rms):
@@ -86,7 +99,10 @@ def restore(ts, ck: Dict[str, Any]):
     """Apply a native checkpoint dict to a TrainState (env state kept)."""
     dev = ts.lr.device
     ts.model.load_state_dict(ck["model"])
-    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    # the moments of the parameters Adam steps (a JAX state carries the
+    # frozen encoders' zeros too)
+    names = trainable(ts.model)
+    to = lambda d: {k: v.to(dev) for k, v in d.items() if k in names}
     adam = ck.get("adam")
     if adam is not None:
         adam = {"m": to(adam["m"]), "v": to(adam["v"]),
@@ -127,7 +143,8 @@ def _rms_to_ref(rms: RunningMeanStd, prefix: str, out: Dict[str, Any]):
 
 
 def model_state_dict(model, obs_rms=None, value_rms=None) -> Dict[str, Any]:
-    out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = {k: v.detach().cpu() for k, v in model.state_dict().items()
+           if not k.startswith(_PTH_LESS)}
     if value_rms is not None:
         _rms_to_ref(value_rms, "value_mean_std", out)
     if isinstance(obs_rms, dict):
@@ -160,8 +177,10 @@ def import_pth(path: str, model, obs_rms=None, value_rms=None):
     ck = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: torch.as_tensor(v) for k, v in ck["model"].items()}
     own = model.state_dict()
-    model.load_state_dict({k: sd[k].to(own[k].dtype).reshape(own[k].shape)
-                           for k in own})
+    model.load_state_dict({
+        k: (v if k.startswith(_PTH_LESS) and k not in sd
+            else sd[k].to(v.dtype).reshape(v.shape))
+        for k, v in own.items()})
 
     def rms(prefix, template):
         if template is None or f"{prefix}.running_mean" not in sd:
@@ -204,37 +223,86 @@ def _get(x, name):
 _BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(c, out, prefix, bias=True):
+    """flax conv params -> torch OIHW weight (and bias)."""
+    out[f"{prefix}.weight"] = _t(c["kernel"]).permute(3, 2, 0, 1)
+    if bias:
+        out[f"{prefix}.bias"] = _t(c["bias"])
+
+
+def _dense(d, out, prefix):
+    out[f"{prefix}.weight"] = _t(d["kernel"]).T
+    out[f"{prefix}.bias"] = _t(d["bias"])
+
+
+def _bn(b, out, prefix):
+    """flax FrozenBatchNorm params -> FrozenBatchNorm parameters and
+    buffers."""
+    out[f"{prefix}.weight"] = _t(b["scale"])
+    out[f"{prefix}.bias"] = _t(b["bias"])
+    out[f"{prefix}.running_mean"] = _t(b["mean"])
+    out[f"{prefix}.running_var"] = _t(b["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+_VAE_CONVS = ("conv0", "conv0_1", "conv1_0", "conv1_1", "conv2_0",
+              "conv2_1", "conv3_0", "conv0_jump_2", "conv1_jump_3")
+
+
+def _jax_vae_encoder_to_ref(enc, out, prefix=""):
+    """flax ImgEncoder params -> ``models/vae.ImgEncoder``'s."""
+    for name in _VAE_CONVS:
+        _conv(enc[name], out, f"{prefix}{name}")
+    for name in ("dense0", "dense1"):
+        _dense(enc[name], out, f"{prefix}{name}")
+
+
+def _jax_resnet_to_ref(res, out, prefix=""):
+    """flax ResNet18Encoder params (``blockI``, ``downsample_conv`` /
+    ``_bn``) -> ``models/resnet.ResNet18Encoder``'s torchvision names."""
+    _conv(res["conv1"], out, f"{prefix}conv1", bias=False)
+    _bn(res["bn1"], out, f"{prefix}bn1")
+    for i in range(8):
+        blk, pre = res[f"block{i}"], f"{prefix}layer{i // 2 + 1}.{i % 2}"
+        for j in (1, 2):
+            _conv(blk[f"conv{j}"], out, f"{pre}.conv{j}", bias=False)
+            _bn(blk[f"bn{j}"], out, f"{pre}.bn{j}")
+        if "downsample_conv" in blk:
+            _conv(blk["downsample_conv"], out, f"{pre}.downsample.0",
+                  bias=False)
+            _bn(blk["downsample_bn"], out, f"{pre}.downsample.1")
+    _dense(res["fc"], out, f"{prefix}fc")
+
+
 def _jax_params_to_ref(p) -> Dict[str, torch.Tensor]:
-    """flax ActorCritic params (numpy) -> reference-layout tensors (with
-    the CNN's batch-norm statistics, which flax keeps as parameters)."""
+    """flax ActorCritic params (numpy) -> the port's names (with the
+    batch-norm statistics, which flax keeps as parameters)."""
     p = p.get("params", p)
-    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
     out = {}
     if "actor_cnn" in p:
         cnn = p["actor_cnn"]
         for i, (ci, bi) in enumerate(((0, 2), (3, 5), (6, 8))):
-            c, b = cnn[f"conv{i}"], cnn[f"bn{i}"]
-            pre = "actor_cnn.features"
-            # flax HWIO -> torch OIHW
-            out[f"{pre}.{ci}.weight"] = t(c["kernel"]).permute(3, 2, 0, 1)
-            out[f"{pre}.{ci}.bias"] = t(c["bias"])
-            out[f"{pre}.{bi}.weight"] = t(b["scale"])
-            out[f"{pre}.{bi}.bias"] = t(b["bias"])
-            out[f"{pre}.{bi}.running_mean"] = t(b["mean"])
-            out[f"{pre}.{bi}.running_var"] = t(b["var"])
-            out[f"{pre}.{bi}.num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.int64)
-        out["actor_cnn.fc.weight"] = t(cnn["fc"]["kernel"]).T
-        out["actor_cnn.fc.bias"] = t(cnn["fc"]["bias"])
-    mlp = p["actor_mlp"]
-    for i in range(len(mlp)):
-        out[f"actor_mlp.layers.{i}.weight"] = t(mlp[f"Dense_{i}"]["kernel"]).T
-        out[f"actor_mlp.layers.{i}.bias"] = t(mlp[f"Dense_{i}"]["bias"])
-    out["mu.weight"] = t(p["mu"]["kernel"]).T
-    out["mu.bias"] = t(p["mu"]["bias"])
-    out["value_head.weight"] = t(p["value"]["kernel"]).T
-    out["value_head.bias"] = t(p["value"]["bias"])
-    out["logstd"] = t(p["logstd"])
+            _conv(cnn[f"conv{i}"], out, f"actor_cnn.features.{ci}")
+            _bn(cnn[f"bn{i}"], out, f"actor_cnn.features.{bi}")
+        _dense(cnn["fc"], out, "actor_cnn.fc")
+    if "actor_enc" in p:
+        _jax_vae_encoder_to_ref(p["actor_enc"]["vae"]["encoder"], out,
+                                "actor_enc.encoder.")
+    if "actor_resnet" in p:
+        _jax_resnet_to_ref(p["actor_resnet"], out, "actor_resnet.")
+    for trunk in ("actor_mlp", "critic_mlp"):
+        for i in range(len(p.get(trunk, ()))):
+            _dense(p[trunk][f"Dense_{i}"], out, f"{trunk}.layers.{i}")
+    _dense(p["mu"], out, "mu")
+    _dense(p["value"], out, "value_head")
+    if "logstd_head" in p:
+        _dense(p["logstd_head"], out, "logstd")
+    else:
+        out["logstd"] = _t(p["logstd"])
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -277,7 +345,8 @@ def from_jax(params_np, obs_rms_np, value_rms_np, adam_np=None,
         "last_ep_env_success": tracker(last_ep_env_success),
     }
     if adam_np is not None:
-        # the batch-norm statistics are buffers here, not parameters
+        # the batch-norm statistics are buffers here, not parameters;
+        # ``restore`` keeps the moments of the parameters Adam steps
         moments = lambda tree: {
             k: v for k, v in _jax_params_to_ref(tree).items()
             if k.rsplit(".", 1)[-1] not in _BN_BUFFERS}
@@ -289,3 +358,78 @@ def from_jax(params_np, obs_rms_np, value_rms_np, adam_np=None,
     if lr is not None:
         ck["lr"] = float(lr)
     return ck
+
+
+# ---------------------------------------------------------------------------
+# warm start across observation widths
+
+
+def transfer_obs_width(trainer, ts, loaded: Dict[str, Any], old_obs_dim: int,
+                       new_obs_dim: int):
+    """Warm-start a policy across observation-VECTOR widths (the JAX
+    package's ``transfer_obs_width``).
+
+    MAPlanning's obs vector is 16 + 2 * num_robots channels whose
+    per-robot relative channels are zeroed, so a policy trained at one
+    robot count transfers exactly to another: inserted first-layer inputs
+    only ever see zeros (their stats start at mean 0 / var 1, normalising
+    0 to 0), and removed ones only ever saw zeros.
+
+    The MLP input is [obs_vec ++ image features], so the first layer of
+    each trunk (``actor_mlp``, and ``critic_mlp`` with ``separate``) is
+    re-indexed along its input axis, dim 1 of the torch [out, in] weight:
+    the first min(old, new) columns, zero columns up to the new width,
+    then the feature columns. The 'observation' stats are re-indexed the
+    same way (``var`` padded with ones, ``count`` kept); the image stats
+    must match in shape. The other parameters, ``value_rms`` and lr carry
+    over; Adam starts fresh (its moments are shaped by the old input) and
+    epoch and frame restart at 0.
+
+    ``ts`` is a fresh ``trainer.init`` state of the TARGET task;
+    ``loaded`` the source's native checkpoint dict (``load``)."""
+    keep = min(old_obs_dim, new_obs_dim)
+
+    def resize(x: torch.Tensor, dim: int, pad: float = 0.0) -> torch.Tensor:
+        parts = [x.narrow(dim, 0, keep)]
+        if new_obs_dim > keep:
+            shape = list(x.shape)
+            shape[dim] = new_obs_dim - keep
+            parts.append(torch.full(shape, pad, dtype=x.dtype))
+        parts.append(x.narrow(dim, old_obs_dim, x.shape[dim] - old_obs_dim))
+        return torch.cat(parts, dim)
+
+    sd = dict(loaded["model"])
+    for trunk in ("actor_mlp", "critic_mlp"):
+        k = f"{trunk}.layers.0.weight"
+        if k in sd:
+            sd[k] = resize(sd[k], 1)
+    ts.model.load_state_dict(sd)
+
+    def resize_stats(d):
+        return {"mean": resize(d["mean"], 0), "var": resize(d["var"], 0, 1.0),
+                "count": d["count"]}
+
+    rms = loaded["obs_rms"]
+    if isinstance(rms, dict) and "mean" not in rms:      # dict obs
+        if "image" in rms and isinstance(ts.obs_rms, dict):
+            have = tuple(ts.obs_rms["image"].mean.shape)
+            if tuple(rms["image"]["mean"].shape) != have:
+                raise ValueError(
+                    f"transfer_obs_width only resizes the obs VECTOR; the "
+                    f"image stats differ in shape "
+                    f"({tuple(rms['image']['mean'].shape)} vs {have}): "
+                    f"source and target must use the same camera "
+                    f"resolution")
+        rms = {k: resize_stats(v) if k == "observation" else v
+               for k, v in rms.items()}
+    elif rms is not None:
+        rms = resize_stats(rms)
+    dev = ts.lr.device
+    return dataclasses.replace(
+        ts, adam=adam_init(ts.model),
+        obs_rms=_rms_from_payload(rms, dev) or ts.obs_rms,
+        value_rms=_rms_from_payload(loaded.get("value_rms"), dev)
+        or ts.value_rms,
+        lr=torch.tensor(loaded.get("lr", float(ts.lr)), dtype=torch.float32,
+                        device=dev),
+        epoch=0, frame=0)

@@ -45,11 +45,13 @@ class FusedHoveringPPO(ppo_mod.PPO):
                 f"(ROADMAP.md queue A item 7b), as the runner picks it")
         net = dict(network_kw or {})
         if tuple(net.get("units", fr.UNITS)) != fr.UNITS \
-                or net.get("activation", "elu") != "elu":
+                or net.get("activation", "elu") != "elu" \
+                or net.get("separate") or not net.get("fixed_sigma", True):
             raise NotImplementedError(
-                f"the fused kernels run the [64,128,64] elu net, got "
-                f"{net}: other nets train with the plain rl/ppo.PPO "
-                f"(ROADMAP.md queue A items 7b, 12d), as the runner picks it")
+                f"the fused kernels run the [64,128,64] elu shared-trunk "
+                f"fixed-sigma net, got {net}: other nets train with the "
+                f"plain rl/ppo.PPO (ROADMAP.md queue C, activations in the "
+                f"fused trainer), as the runner picks it")
         self._motor_alpha = qd.motor_alpha(task.params)
         super().__init__(task, cfg, network_kw=network_kw)
 

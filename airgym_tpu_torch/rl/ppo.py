@@ -14,10 +14,15 @@ Adam (eps outside the square root, lr folded in after the bias-corrected
 step, one shared step count). ``rl/fused_ppo.py`` replaces the rollout and
 the update with kernels for the configs they cover.
 
+Adam steps the trainable parameters (``trainable``): the frozen VAE
+encoder and ResNet-18 backbone stay out, as JAX's Adam leaves them
+unchanged behind ``stop_gradient``.
+
 Camera tasks (dict obs) add frame dedup: the camera renders every
 ``cam_every`` steps, ``init`` phase-aligns the render cadence to the
 rollout's blocks, the rollout renders on the last step of each block
-(a static ``render`` flag) and encodes each new frame once, and stores
+(a static ``render`` flag) and encodes each new frame once with the
+model's encoder (CNN, VAE or ResNet-18), and stores
 only the unique frames, in bfloat16. Minibatches gather their
 (frame, env) pairs from a window of envs (``unique_window``); without
 dedup the per-step images stay in rollout layout [H, N, ...] and each
@@ -129,8 +134,14 @@ class Rollout(NamedTuple):
     frames: Optional[torch.Tensor] = None
 
 
+def trainable(model: ac.ActorCritic) -> Dict[str, torch.Tensor]:
+    """The parameters Adam steps: all but the frozen encoder parts, which
+    JAX's Adam leaves unchanged (zero gradients behind stop_gradient)."""
+    return {k: p for k, p in model.named_parameters() if p.requires_grad}
+
+
 def adam_init(model: ac.ActorCritic) -> Dict[str, Any]:
-    p = dict(model.named_parameters())
+    p = trainable(model)
     return {"m": {k: torch.zeros_like(v.detach()) for k, v in p.items()},
             "v": {k: torch.zeros_like(v.detach()) for k, v in p.items()},
             "count": torch.zeros(1, dtype=torch.float32,
@@ -231,12 +242,11 @@ class PPO:
                 env_state, out0 = self.task.step(env_state, zero, gen)
         model = self.make_model(seed_gen)
         if self.obs_is_dict:
-            feat = self.network_kw.get("image_feature_dim", 30)
             obs_rms = {
                 "image": RunningMeanStd.create(out0.obs["image"].shape[1:],
                                                dev),
                 "observation": RunningMeanStd.create(
-                    (self.task.num_obs + feat,), dev)}
+                    (self.task.num_obs + model.image_features,), dev)}
         else:
             obs_rms = RunningMeanStd.create((self.task.num_obs,), dev)
         zeros = lambda: torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -498,8 +508,7 @@ class PPO:
         sigmas = dataset.pop("sigmas_init").clone()
 
         model, rms = ts.model, self._rms(ts)
-        names = [k for k, _ in model.named_parameters()]
-        params = [p for _, p in model.named_parameters()]
+        names, params = map(list, zip(*trainable(model).items()))
         m = [ts.adam["m"][k].clone() for k in names]
         v = [ts.adam["v"][k].clone() for k in names]
         count = ts.adam["count"].clone()

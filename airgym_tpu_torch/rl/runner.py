@@ -24,11 +24,16 @@ one its kernels cover (rate mode, a multiple of 1024 envs, the
 ``PPO`` (camera tasks, Balloon's shipped 64 envs, other control modes,
 other nets).
 
+A ``vae:`` / ``resnet:`` block with a ``model_file`` grafts a pretrained
+encoder after ``trainer.init`` (``_maybe_load_pretrained_vae``), in train
+and play; a later ``checkpoint`` overwrites it. ``transfer_checkpoint``
+with ``transfer_old_obs_dim`` warm-starts a native checkpoint across
+observation widths (the robot-count curriculum,
+``checkpoint.transfer_obs_width``).
+
 Play (``Player``) evaluates the policy's clamped mean in chunks of steps
 and reports the mean reward per finished episode and, where the task has
-one, the success rate. Multi-GPU runs and the robot-count curriculum's
-warm start (``transfer_checkpoint``) are ROADMAP.md queue A items 15 and
-13b.
+one, the success rate. Multi-GPU runs are ROADMAP.md queue A item 15.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ FUSED_TRAINERS = {"hovering": FusedHoveringPPO, "balloon": FusedBalloonPPO,
 
 
 def network_kw_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference network YAML block -> ActorCritic kwargs."""
     net = params.get("network", {})
     mlp = net.get("mlp", {})
     kw: Dict[str, Any] = {}
@@ -82,14 +88,25 @@ def network_kw_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
     space = net.get("space", {}).get("continuous", {})
     if "fixed_sigma" in space and not space["fixed_sigma"]:
         kw["fixed_sigma"] = False
-    # encoder priority of the reference model build (resnet, cnn, vae)
-    for enc in ("resnet", "cnn", "vae"):
-        if enc in net:
-            kw["image_encoder"] = enc
-            if enc == "cnn":
-                kw["image_feature_dim"] = int(net["cnn"].get("output_dim",
-                                                             30))
-            break
+    # encoder priority of the reference model build: resnet, cnn, vae
+    if "resnet" in net:
+        kw["image_encoder"] = "resnet"
+        kw["image_feature_dim"] = int(net["resnet"].get("output_dim", 30))
+        rtype = net["resnet"].get("type", "resnet18")
+        if rtype != "resnet18":
+            raise ValueError(f"resnet type {rtype!r} unsupported "
+                             "(the reference uses resnet18)")
+    elif "cnn" in net:
+        kw["image_encoder"] = "cnn"
+        kw["image_feature_dim"] = int(net["cnn"].get("output_dim", 30))
+    elif "vae" in net:
+        kw["image_encoder"] = "vae"
+        kw["vae_latent_dim"] = int(net["vae"].get("latent_dims", 64))
+        if net["vae"].get("return_sampled_latent"):
+            raise NotImplementedError(
+                "return_sampled_latent: True is not supported; the policy "
+                "encoder returns deterministic means like the shipped "
+                "reference configs (return_sampled_latent: False)")
     return kw
 
 
@@ -176,9 +193,49 @@ class Runner:
             return self.run_train(args)
         return self.run_play(args)
 
+    def _maybe_load_pretrained_vae(self, ts):
+        """Graft pretrained frozen encoder weights into the model.
+
+        ``vae: {model_folder, model_file}``: a torch ``vae_model.pth``
+        (its encoder; the RL model holds no decoder). ``resnet:
+        {model_folder, model_file}``: a torchvision resnet18 state dict
+        (``conv1`` summed over RGB; the model keeps its own ``fc``).
+        Without either block ``ts`` comes back as it is."""
+        net = self.params.get("network", {})
+        vae_cfg = net.get("vae") or {}
+        resnet_cfg = net.get("resnet") or {}
+
+        def load_sd(cfg):
+            path = os.path.join(cfg.get("model_folder", "."),
+                                cfg["model_file"])
+            sd = torch.load(path, map_location="cpu", weights_only=False)
+            if isinstance(sd, dict) and "model_state_dict" in sd:
+                sd = sd["model_state_dict"]
+            return sd
+
+        model = ts.model
+        if vae_cfg.get("model_file"):
+            from airgym_tpu_torch.models import vae as vae_mod
+            sd = vae_mod.import_torch_state_dict(load_sd(vae_cfg))
+            if model.image_encoder == "vae":
+                model.actor_enc.encoder.load_state_dict(
+                    {k[len("encoder."):]: v for k, v in sd.items()
+                     if k.startswith("encoder.")})
+        elif resnet_cfg.get("model_file"):
+            from airgym_tpu_torch.models import resnet as resnet_mod
+            sd = resnet_mod.import_torchvision_state_dict(
+                load_sd(resnet_cfg), int(resnet_cfg.get("output_dim", 30)))
+            if model.image_encoder == "resnet":
+                # the model keeps its own fc
+                sd.update({f"fc.{k}": v for k, v in
+                           model.actor_resnet.fc.state_dict().items()})
+                model.actor_resnet.load_state_dict(sd)
+        return ts
+
     def run_play(self, args: Dict[str, Any]):
         task, trainer, seed = self.build(args)
         player = Player(task, trainer)
+        player.ts = self._maybe_load_pretrained_vae(player.ts)
         if args.get("checkpoint"):
             player.restore(args["checkpoint"])
         games = int(self.params.get("config", {}).get(
@@ -195,14 +252,19 @@ class Runner:
                                f"{name}_{time.strftime('%d-%H-%M-%S')}")
         ck_dir = os.path.join(run_dir, "nn")
         writer = metrics_mod.MetricsWriter(run_dir)
-        ts = trainer.init(seed)
+        ts = self._maybe_load_pretrained_vae(trainer.init(seed))
         if args.get("checkpoint"):
             ts = restore(ts, args["checkpoint"])
         elif args.get("transfer_checkpoint"):
-            raise NotImplementedError(
-                "warm starts across observation widths (the robot-count "
-                "curriculum, checkpoint.transfer_obs_width) are not ported "
-                "yet: ROADMAP.md queue A item 13b")
+            # the caller states the SOURCE obs-vector width; the target
+            # width is this task's own
+            if args.get("transfer_old_obs_dim") is None:
+                raise ValueError(
+                    "transfer_checkpoint needs transfer_old_obs_dim, the "
+                    "source checkpoint's obs-vector width")
+            ts = ckpt.transfer_obs_width(
+                trainer, ts, ckpt.load(args["transfer_checkpoint"]),
+                int(args["transfer_old_obs_dim"]), task.num_obs)
         log_every = max(1, int(args.get("log_every")
                                or max(1, cfg.max_epochs // 50)))
         viz_every = int(self.params.get("config", {}).get(

@@ -128,6 +128,27 @@ Phases, each of which exits non-zero on failure:
      of pos, vel, atti (5 actions) and prop, then train it in vel for 2
      epochs through the CLI (the plain trainer: no kernel launched) and
      --play that checkpoint for 100 steps;
+ 27. train Hovering (its YAML at 4096 envs) through the CLI with
+     separate: True, fixed_sigma: False and activation tanh for 3 epochs
+     (the plain trainer: no kernel launched), check its .pth's keys
+     (critic_mlp.*, logstd.weight / .bias, no logstd) and --play it for
+     100 steps; ms per epoch;
+ 28. train Planning (its YAML at 4096 envs, 212 x 120) for 1 epoch
+     through the runner with a vae: block in place of the CNN, whose
+     model_file this phase writes (a seeded VAE state dict, keys prefixed
+     module. / dronet.): the grafted encoder equals the file's before and
+     after the epoch, the render + process kernel launched as the cadence
+     gives (counters set to 0 before, read after), the .pth without the
+     encoder; ms per epoch, peak device memory;
+ 29. as 28 with a resnet: block and a torchvision-layout resnet18 file
+     (3-channel conv1, BatchNorm2d statistics, downsample.0 / .1): the
+     backbone unchanged by the epoch, fc trained;
+ 30. train MAPlanning (its YAML at 4096 envs) for 1 epoch at 2 robots,
+     transfer the checkpoint into the YAML's 4 robots
+     (checkpoint.transfer_obs_width): mu / sigma / value on zero-padded
+     robot channels equal the source's within 1e-6 of max|ref|; then the
+     runner's transfer_checkpoint branch trains 1 epoch; raw depth
+     launches counted in both runs;
 and print one JSON line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -246,6 +267,10 @@ BALLOON_SUCCESS_MIN, BALLOON_GAMES_MIN = 0.30, 500
 HOVER_PLAY_STEPS = 1000
 PLANNING_PLAY_ENVS, PLANNING_PLAY_STEPS = 256, 400
 MODE_PLAY_STEPS, MODE_TRAIN_EPOCHS = 100, 2
+OPTION_EPOCHS, OPTION_PLAY_STEPS = 3, 100       # phase 27
+# phase 30: the policy on zero-padded robot channels against the source's,
+# of max|ref| (float32 products over another input width)
+TRANSFER_RTOL = 1e-6
 
 T0 = time.time()
 
@@ -1124,6 +1149,255 @@ def play_control_modes(cli, runner_mod, kernels, run_root, h_yaml):
     play_checks(out, "hovering vel (trained)", 4096)
 
 
+def epoch_ms(info):
+    return [round(1e3 * row["seconds"], 1) for row in info["history"]]
+
+
+def train_model_options(cli, kernels, run_root, h_yaml, card):
+    """Phase 27: Hovering with separate: True, fixed_sigma: False and
+    activation tanh through the CLI (the plain trainer), its .pth keys,
+    then played."""
+    cfg = json.loads(json.dumps(h_yaml))
+    net = cfg["params"]["network"]
+    net["separate"] = True
+    net["space"]["continuous"]["fixed_sigma"] = False
+    net["mlp"]["activation"] = "tanh"
+    cfg["params"]["config"].update(max_epochs=OPTION_EPOCHS,
+                                   save_best_after=1)
+    path = os.path.join(run_root, "ppo_hovering_options.yaml")
+    with open(path, "w") as f:
+        json.dump(cfg, f)            # JSON is YAML
+    reset_counts(kernels)
+    with cwd(run_root):
+        (ts, info), train_s = timed_cli(cli, [
+            "--train", "--task", "hovering", "--file", path, "--num_envs",
+            "4096", "--seed", "42"])
+        got = launched(kernels)
+        model = ts.model
+        check(info["epochs"] == OPTION_EPOCHS and not got
+              and hasattr(model, "critic_mlp")
+              and isinstance(model.logstd, torch.nn.Linear)
+              and model.activation == "tanh",
+              f"hovering options: {info['epochs']} epochs, launches {got}")
+        for row in info["history"]:
+            check(all(math.isfinite(row[k]) for k in ("mean_reward", "loss",
+                                                      "kl", "lr")),
+                  f"hovering options epoch {row['epoch']}: {row}")
+        pth = info["checkpoint"][:-3] + ".pth"
+        keys = set(torch.load(pth, map_location="cpu",
+                              weights_only=True)["model"])
+        check("critic_mlp.layers.0.weight" in keys
+              and {"logstd.weight", "logstd.bias"} <= keys
+              and "logstd" not in keys,
+              f"hovering options .pth keys: {sorted(keys)}")
+        out, play_s = timed_cli(cli, [
+            "--play", "--task", "hovering", "--file", path, "--num_envs",
+            "4096", "--max_steps", str(OPTION_PLAY_STEPS), "--checkpoint",
+            pth])
+    check(not launched(kernels), f"hovering options play launched "
+                                 f"{launched(kernels)}")
+    play_checks(out, "hovering options", 4096)
+    print(f"[train hovering options] separate, state sigma, tanh: "
+          f"{OPTION_EPOCHS} epochs x 4096 x "
+          f"{cfg['params']['config']['horizon_length']} with the plain "
+          f"trainer in {train_s:.2f} s, ms per epoch {epoch_ms(info)}, no "
+          f"kernel launched; .pth has critic_mlp.* and logstd.weight / "
+          f".bias, no logstd; played {OPTION_PLAY_STEPS} steps in "
+          f"{play_s:.2f} s; card {card}", flush=True)
+
+
+def write_pretrained(enc, folder):
+    """Phases 28-29: the pretrained file a user would supply, written
+    here from a seed: a torch VAE state dict with keys prefixed 'module.'
+    and 'dronet.' (clean_state_dict's renames), or a torchvision-layout
+    resnet18 (3-channel conv1, BatchNorm2d statistics, a 1000-way fc)."""
+    g = torch.Generator().manual_seed(29)
+    if enc == "vae":
+        from airgym_tpu_torch.models.vae import VAE
+        sd = {("module." + k.replace("encoder.", "dronet.", 1)): v
+              for k, v in VAE(64, generator=g).state_dict().items()}
+        name = "vae_model.pth"
+    else:
+        from airgym_tpu_torch.models.resnet import ResNet18Encoder
+        sd = {}
+        for k, v in ResNet18Encoder(1000, generator=g).state_dict().items():
+            if k == "conv1.weight":
+                v = torch.randn((64, 3, 7, 7), generator=g) * 0.05
+            elif k.endswith("running_mean"):
+                v = torch.randn(v.shape, generator=g) * 0.1
+            elif k.endswith("running_var"):
+                v = torch.rand(v.shape, generator=g) + 0.5
+            elif ".bn" in k or "downsample.1" in k or k.startswith("bn1"):
+                v = (torch.rand(v.shape, generator=g) + 0.5
+                     if v.is_floating_point() else v)
+            sd[k] = v
+        name = "resnet18.pth"
+    torch.save(sd, os.path.join(folder, name))
+    return name
+
+
+def train_planning_encoder(runner_mod, ckpt, rc, kernels, run_root, p_yaml,
+                           enc, card):
+    """Phases 28 (vae) and 29 (resnet): Planning at its YAML's 4096 envs
+    with a pretrained encoder block in place of the CNN, one epoch through
+    the runner; the grafted frozen weights equal the file's after it."""
+    from airgym_tpu_torch.envs.planning import PlanningCfg
+    from airgym_tpu_torch.models import resnet as resnet_mod
+    from airgym_tpu_torch.models import vae as vae_mod
+    cfg = json.loads(json.dumps(p_yaml))
+    net = cfg["params"]["network"]
+    del net["cnn"]
+    folder = os.path.join(run_root, f"pretrained_{enc}")
+    os.makedirs(folder, exist_ok=True)
+    name = write_pretrained(enc, folder)
+    net[enc] = ({"latent_dims": 64} if enc == "vae"
+                else {"type": "resnet18", "output_dim": 30})
+    net[enc].update(model_folder=folder, model_file=name)
+    cfg["params"]["config"].update(max_epochs=1, save_best_after=1)
+    runner = runner_mod.Runner().load(cfg)
+    args = {"task": "planning", "ctl_mode": "rate", "device": "cuda",
+            "run_root": run_root, "num_envs": 4096, "seed": 42}
+    file_sd = torch.load(os.path.join(folder, name), map_location="cpu",
+                         weights_only=True)
+    if enc == "vae":
+        want = {k[len("encoder."):]: v for k, v in
+                vae_mod.import_torch_state_dict(file_sd).items()
+                if k.startswith("encoder.")}
+        part = lambda m: m.actor_enc.encoder.state_dict()
+    else:
+        want = {k: v for k, v in resnet_mod.import_torchvision_state_dict(
+            file_sd, 30).items() if not k.startswith("fc.")}
+        part = lambda m: {k: v for k, v in m.actor_resnet.state_dict()
+                          .items() if not k.startswith("fc.")}
+
+    def same(sd):
+        return all(torch.equal(sd[k].cpu(), v) for k, v in want.items())
+
+    # the graft on the state the run starts from (the same seed)
+    _, trainer, _ = runner.build(args)
+    ts0 = runner._maybe_load_pretrained_vae(trainer.init(42))
+    check(same(part(ts0.model)), f"planning {enc}: the graft differs from "
+                                 f"the file")
+    fc0 = (ts0.model.actor_resnet.fc.weight.detach().clone()
+           if enc == "resnet" else None)
+    del trainer, ts0
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    ts, info = runner.run_train(args)
+    torch.cuda.synchronize()
+    got = launched(kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hc = int(cfg["params"]["config"]["horizon_length"])
+    want_renders = 1 + hc // PlanningCfg().cam_every
+    check(got == {"render_process/render_process": want_renders},
+          f"planning {enc}: launches {got}, expected {want_renders} "
+          f"render_process")
+    check(same(part(ts.model)), f"planning {enc}: the frozen encoder "
+                                f"changed in the epoch")
+    if enc == "resnet":
+        check(not torch.equal(ts.model.actor_resnet.fc.weight, fc0),
+              "planning resnet: fc did not train")
+    row = info["history"][-1]
+    bad = [k for k, v in row.items() if not math.isfinite(v)]
+    check(info["epochs"] == 1 and not bad,
+          f"planning {enc}: {info['epochs']} epochs, not finite {bad}")
+    pth_keys = set(torch.load(info["checkpoint"][:-3] + ".pth",
+                              map_location="cpu",
+                              weights_only=True)["model"])
+    enc_mod = "actor_enc" if enc == "vae" else "actor_resnet"
+    check(not any(k.startswith(enc_mod) for k in pth_keys)
+          and any(k.startswith(enc_mod) for k in
+                  ckpt.load(info["checkpoint"])["model"]),
+          f"planning {enc}: the .pth must leave the encoder out, the "
+          f"native checkpoint carry it")
+    print(f"[train planning {enc}] 1 epoch x 4096 x {hc} (pretrained file "
+          f"{name} grafted, equal to the file before and after the epoch"
+          + (", fc trained" if enc == "resnet" else "") + f"): ms per epoch "
+          f"{epoch_ms(info)}; launches {got}; peak device memory "
+          f"{peak:.2f} GB; mean_reward {row['mean_reward']:.4f} loss "
+          f"{row['loss']:.5f}; card {card}", flush=True)
+    return got["render_process/render_process"]
+
+
+def warm_start_maplanning(runner_mod, ckpt, rc, kernels, run_root, m_yaml,
+                          card):
+    """Phase 30: MAPlanning for 1 epoch at 2 robots, then the
+    robot-count warm start into its YAML's 4 robots for 1 epoch."""
+    from airgym_tpu_torch.envs.maplanning import MAPlanningCfg
+    ce = MAPlanningCfg().cam_every
+    cfgs = {}
+    for r in (2, 4):
+        cfg = json.loads(json.dumps(m_yaml))
+        cfg["params"]["config"].update(max_epochs=1, save_best_after=1)
+        cfg["params"]["config"]["env_config"] = {"use_image": True,
+                                                 "num_robots": r}
+        cfgs[r] = cfg
+    args = {"task": "maplanning", "ctl_mode": "rate", "device": "cuda",
+            "run_root": run_root, "num_envs": 4096, "seed": 42}
+    hc = int(m_yaml["params"]["config"]["horizon_length"])
+    renders = {}
+    reset_counts(kernels)
+    t0 = time.time()
+    ts2, info2 = runner_mod.Runner().load(cfgs[2]).run_train(args)
+    torch.cuda.synchronize()
+    renders[2] = (launched(kernels), time.time() - t0, epoch_ms(info2))
+    src = ckpt.load(info2["checkpoint"])
+
+    # the transferred policy before its epoch against the source's
+    runner4 = runner_mod.Runner().load(cfgs[4])
+    task4, trainer4, _ = runner4.build(args)
+    check(task4.num_obs == 24 and ts2.model.actor_mlp.layers[0]
+          .in_features == 20 + 30, "maplanning widths")
+    ts4 = ckpt.transfer_obs_width(trainer4, trainer4.init(42), src, 20, 24)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    cam = task4.cam_cfg
+    vec = torch.randn((256, 16), generator=g, device="cuda")
+    img = torch.rand((256, 1, cam.width, cam.height), generator=g,
+                     device="cuda")
+    pad = lambda r: {"image": img, "observation": torch.cat(
+        [vec, torch.zeros((256, 2 * r), device="cuda")], -1)}
+    errs = []
+    with torch.no_grad():
+        for a, b in zip(ts2.model(pad(2), ts2.obs_rms),
+                        ts4.model(pad(4), ts4.obs_rms)):
+            err = float((a - b).abs().max()) / max(float(a.abs().max()),
+                                                   1e-30)
+            errs.append(err)
+    check(max(errs) <= TRANSFER_RTOL,
+          f"maplanning warm start: mu / sigma / value differ by {errs} of "
+          f"max|ref|")
+    del trainer4, ts4, task4
+    torch.cuda.empty_cache()
+
+    reset_counts(kernels)
+    t0 = time.time()
+    ts4, info4 = runner4.run_train({
+        **args, "transfer_checkpoint": info2["checkpoint"],
+        "transfer_old_obs_dim": 20})
+    torch.cuda.synchronize()
+    renders[4] = (launched(kernels), time.time() - t0, epoch_ms(info4))
+    for r, (got, secs, ms) in renders.items():
+        check(got == {"render_depth/render_depth": 1 + hc // ce},
+              f"maplanning {r} robots: launches {got}, expected "
+              f"{1 + hc // ce} render_depth")
+        print(f"[warm start maplanning] {r} robots x 4096 envs: 1 epoch, "
+              f"ms per epoch {ms}, {secs:.2f} s with set-up; launches "
+              f"{got}; card {card}", flush=True)
+    row = info4["history"][-1]
+    check(info4["epochs"] == 1 and ts4.epoch == 1
+          and math.isfinite(row["mean_reward"])
+          and ts4.model.actor_mlp.layers[0].in_features == 24 + 30,
+          f"maplanning warm start: {info4['epochs']} epochs, {row}")
+    print(f"[warm start maplanning] 2 -> 4 robots: mu / sigma / value on "
+          f"zero-padded robot channels within {[f'{e:.2e}' for e in errs]}"
+          f" of max|ref| (limit {TRANSFER_RTOL}); after the epoch "
+          f"mean_reward {row['mean_reward']:.4f} env_success_rate "
+          f"{row['env_success_rate']:.4f}", flush=True)
+    return (renders[2][0]["render_depth/render_depth"]
+            + renders[4][0]["render_depth/render_depth"])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1827,6 +2101,25 @@ def main():
     phase(26)
     play_control_modes(cli, runner_mod, kernels, run_root, load_cfg("hovering"))
     print(f"[phases 23-26] done at {time.time() - T0:.1f} s", flush=True)
+
+    # ---- 27. the model options: separate, state sigma, tanh -----------------
+    phase(27)
+    t27 = time.time()
+    train_model_options(cli, kernels, run_root, load_cfg("hovering"), card)
+
+    # ---- 28-29. Planning with a pretrained VAE / ResNet-18 encoder ----------
+    for n, enc in ((28, "vae"), (29, "resnet")):
+        phase(n)
+        train_planning_encoder(runner_mod, ckpt, rc, kernels, run_root,
+                               load_cfg("planning"), enc, card)
+        torch.cuda.empty_cache()
+
+    # ---- 30. the robot-count warm start -------------------------------------
+    phase(30)
+    warm_start_maplanning(runner_mod, ckpt, rc, kernels, run_root,
+                          load_cfg("maplanning"), card)
+    print(f"[phases 27-30] done at {time.time() - T0:.1f} s, "
+          f"{time.time() - t27:.1f} s for the four", flush=True)
 
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]

@@ -260,9 +260,19 @@ def test_cli_trains_on_cpu(task, n, tmp_path, monkeypatch):
 
 
 def test_transfer_checkpoint_refuses_naming_its_item(tmp_path):
+    """The branch raised NotImplementedError naming ROADMAP.md queue A
+    item 13b until that item was ported; it runs now
+    (tests/test_torch_transfer.py). What it still refuses, loudly: a
+    source checkpoint that is not there, and a source without its
+    obs-vector width (the error names the missing argument)."""
     cfg, _ = tiny_yaml(tmp_path, "maplanning", num_actors=E)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
-        Runner().load(cfg).run({"train": True, "task": "maplanning",
-                                "device": "cpu", "run_root": str(tmp_path),
-                                "transfer_checkpoint": "x.pt",
+    args = {"train": True, "task": "maplanning", "device": "cpu",
+            "run_root": str(tmp_path)}
+    with pytest.raises(FileNotFoundError):
+        Runner().load(cfg).run({**args, "transfer_checkpoint": "x.pt",
                                 "transfer_old_obs_dim": 20})
+    _, trainer, _ = Runner().load(cfg).build(args)
+    src = str(tmp_path / "src.pt")
+    tckpt.save(src, trainer.init(0))
+    with pytest.raises(ValueError, match="transfer_old_obs_dim"):
+        Runner().load(cfg).run({**args, "transfer_checkpoint": src})
