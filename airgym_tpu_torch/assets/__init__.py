@@ -6,17 +6,17 @@ with the analytic geometry the physics and the renderer use in its place
 (the X152b's 0.2 m collision sphere, the 0.3 m cube, the ground boards as
 the z = 0 plane). The per-variant primitive tables of the group families
 are copies of the JAX package's: ``thin_trees.npy`` (the collision
-cylinder of each of the 100 thin-tree URDFs), ``tree_mesh.npz``
-(cylinder skeleton and leaf spheres of the tree mesh), ``cubes.npy`` and
-``flags.npz``. ``place_group`` composes a family's primitives with
-per-slot (variant, x, y, yaw) placements.
-
-The ``vtrees`` and ``objects`` tables come with the Customized task and
-the asset manager (ROADMAP.md queue A item 11).
+cylinder of each of the 100 thin-tree URDFs), ``vtrees.npy`` (the 13
+cylinders of each of the 100 tree variants), ``tree_mesh.npz`` (cylinder
+skeleton and leaf spheres of the tree mesh), ``cubes.npy``, ``flags.npz``
+and ``objects.npy`` (one box or sphere per object variant).
+``place_group`` composes a family's primitives with per-slot (variant, x,
+y, yaw) placements; ``sample_tree_scene`` draws a random thin-tree forest.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict, NamedTuple, Optional
 
@@ -185,10 +185,6 @@ def family_geometry(family: str) -> FamilyGeom:
     """Geometry tables of a group-asset family."""
     if family in _FAMILY_CACHE:
         return _FAMILY_CACHE[family]
-    if family in ("vtrees", "objects"):
-        raise NotImplementedError(
-            f"asset family {family!r} is not ported yet: ROADMAP.md queue A "
-            f"item 11 (with the Customized task and the asset manager)")
     if family == "thin":
         t = thin_tree_table()
         radius, length = t[:, 0], t[:, 1]
@@ -201,6 +197,10 @@ def family_geometry(family: str) -> FamilyGeom:
             [off, axis, radius[:, None], length[:, None] / 2,
              np.ones((len(t), 1))], axis=-1)[:, None, :]
         geom = FamilyGeom(cyls=cyls.astype(np.float32))
+    elif family == "vtrees":
+        v = _load("vtrees.npy")                    # [100, 13, 8]
+        valid = np.ones(v.shape[:2] + (1,), np.float32)
+        geom = FamilyGeom(cyls=np.concatenate([v, valid], axis=-1))
     elif family == "trees":
         z = _load("tree_mesh.npz")
         c, s = z["cylinders"], z["spheres"]        # [12, 8], [24, 4]
@@ -226,6 +226,18 @@ def family_geometry(family: str) -> FamilyGeom:
         sphs[1, 0] = (0, 0, 0, 0.0, 0)
         sphs[2, 0] = (0, 0, 0, 0.2, 1)
         geom = FamilyGeom(sphs=sphs)
+    elif family == "objects":
+        t = _load("objects.npy")                   # [5, 8]: kind 0 = box
+        is_box = t[:, 0] == 0
+        boxes = np.zeros((len(t), 1, 7), np.float32)
+        boxes[:, 0, :3] = t[:, 1:4]
+        boxes[:, 0, 3:6] = t[:, 4:7]
+        boxes[:, 0, 6] = is_box
+        sphs = np.zeros((len(t), 1, 5), np.float32)
+        sphs[:, 0, :3] = t[:, 1:4]
+        sphs[:, 0, 3] = t[:, 4]
+        sphs[:, 0, 4] = ~is_box
+        geom = FamilyGeom(boxes=boxes, sphs=sphs)
     else:
         raise KeyError(f"unknown asset family: {family}")
     _FAMILY_CACHE[family] = geom
@@ -313,3 +325,18 @@ def place_group(family: str, variant_idx: torch.Tensor, pos_xy: torch.Tensor,
             valid=flat(row[..., 9] > 0, ()))
     return PlacedGroup(cylinders=cylinders, spheres=spheres, boxes=boxes,
                        annuli=annuli)
+
+
+def sample_tree_scene(generator: torch.Generator, n_envs: int,
+                      num_trees: int, x_half: float, y_half: float,
+                      device=None) -> sc.Cylinders:
+    """A random thin-tree forest like the Planning / Customized reset:
+    variants ~ U{0..99}, positions ~ U(-x_half, x_half) x U(-y_half,
+    y_half), yaws ~ U(-pi, pi), drawn from ``generator`` in that order."""
+    variant = torch.randint(0, 100, (n_envs, num_trees), generator=generator,
+                            device=device)
+    u = lambda *shape: torch.rand(shape, generator=generator, device=device)
+    scale = torch.tensor([x_half, y_half], device=device)
+    pos = (u(n_envs, num_trees, 2) * 2.0 - 1.0) * scale
+    yaw = u(n_envs, num_trees) * (2.0 * math.pi) - math.pi
+    return tree_cylinders_from_placement(variant, pos, yaw)

@@ -8,9 +8,13 @@
         --checkpoint runs/.../nn/last_ppo_hovering.pth \
         [--max_steps 1000] [--record_dir DIR] [--device cuda|cpu]
 
+    torchrun --nproc_per_node=G -m airgym_tpu_torch.cli --train ...
+
 Tasks: hovering, balloon, tracking, planning, avoid, maplanning (DepthGen
 generates datasets: ``make_task("depthgen", num_envs=N).generate(out_dir,
-n_frames)``, no training). Uses the packaged
+n_frames)``, no training); a task added with ``envs.register`` (a
+Customized subclass) trains from a YAML whose ``config.env_name`` names
+it, given with --file. Uses the packaged
 airgym_tpu_torch/configs/ppo_<task>.yaml unless --file is given; CLI
 flags override YAML values (``update_config``). ``--train`` wins over
 ``--play``, and neither flag trains (``resolve_train``). ``--ctl_mode``
@@ -18,6 +22,9 @@ defaults to rate. ``--play`` evaluates a native ``.pt`` or reference
 ``.pth`` checkpoint and prints ``av reward: ... games played: ...``;
 ``--record_dir`` dumps the episode there (needs matplotlib). Runs on
 ``cuda`` unless ``--device cpu`` is given, and raises without a GPU.
+Under ``torchrun`` each of the G processes trains its block of the envs
+on ``cuda:LOCAL_RANK`` over NCCL (parallel/dist.py); rank 0 logs and
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -106,7 +113,11 @@ def run_cli(argv=None):
 
 
 def main(argv=None):
-    run_cli(argv)
+    from airgym_tpu_torch.parallel import dist
+    try:
+        run_cli(argv)
+    finally:
+        dist.destroy()
     return 0
 
 

@@ -1,8 +1,10 @@
 """Task registry (counterpart of airgym_tpu/envs/__init__.py).
 
-Ported: Hovering, Balloon, Tracking, Planning, Avoid, MAPlanning and
-DepthGen. Customized is still to come (ROADMAP.md queue A item 11), and
-``make_task`` refuses it.
+Every task of the JAX package: Hovering, Balloon, Tracking, Planning,
+Avoid, MAPlanning, DepthGen and Customized, the template for new vision
+tasks. ``register(name, task_cls, cfg_cls)`` adds a task (a Customized
+subclass, say) that ``make_task`` and the runner then build by name;
+``get_cfg(name, **overrides)`` is its config.
 
 ``make_task(name, ...)`` returns the functional task whose ``step`` the
 trainers call; ``make_env(name, seed, ...)`` the stateful reference-API
@@ -15,6 +17,7 @@ import dataclasses
 from airgym_tpu_torch import device as device_mod
 from airgym_tpu_torch.envs.avoid import Avoid, AvoidCfg
 from airgym_tpu_torch.envs.balloon import Balloon, BalloonCfg
+from airgym_tpu_torch.envs.customized import Customized, CustomizedCfg
 from airgym_tpu_torch.envs.depthgen import DepthGen, DepthGenCfg
 from airgym_tpu_torch.envs.hovering import Hovering, HoveringCfg
 from airgym_tpu_torch.envs.maplanning import MAPlanning, MAPlanningCfg
@@ -27,21 +30,28 @@ _REGISTRY = {"hovering": (Hovering, HoveringCfg),
              "planning": (Planning, PlanningCfg),
              "avoid": (Avoid, AvoidCfg),
              "maplanning": (MAPlanning, MAPlanningCfg),
-             "depthgen": (DepthGen, DepthGenCfg)}
+             "depthgen": (DepthGen, DepthGenCfg),
+             "customized": (Customized, CustomizedCfg)}
 
-_NOT_PORTED = {"customized": "queue A item 11"}
+
+def register(name: str, task_cls: type, cfg_cls: type) -> None:
+    """Add (or replace) a task under ``name``."""
+    _REGISTRY[name] = (task_cls, cfg_cls)
 
 
 def registered_tasks():
     return sorted(_REGISTRY)
 
 
+def get_cfg(name: str, **overrides):
+    """The registered task's default config with ``overrides``."""
+    _, cfg_cls = _REGISTRY[name]
+    return dataclasses.replace(cfg_cls(), **overrides)
+
+
 def make_task(name: str, ctl_mode: str = "rate", num_envs: int | None = None,
               device=None, **overrides):
     """Functional task on ``device`` (default ``cuda``)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"task {name!r} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown task {name!r}; have {registered_tasks()}")
     task_cls, cfg_cls = _REGISTRY[name]

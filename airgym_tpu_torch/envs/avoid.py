@@ -109,8 +109,7 @@ class Avoid(base.QuadEnvCore):
 
     def _u(self, generator, *shape):
         """U(-1, 1) draws of ``shape``."""
-        return torch.rand(shape, generator=generator, dtype=self.cfg.dtype,
-                          device=self.device) * 2.0 - 1.0
+        return self.rand(generator, *shape) * 2.0 - 1.0
 
     def initial_state(self, generator: torch.Generator) -> AvoidState:
         n, cfg = self.cfg.num_envs, self.cfg
@@ -139,7 +138,7 @@ class Avoid(base.QuadEnvCore):
     def _reset_object(self, generator, n):
         """The ballistic launch (reference avoid.py:58-126)."""
         kw = dict(dtype=self.cfg.dtype, device=self.device)
-        parked = torch.rand((n,), generator=generator, **kw) >= 0.8
+        parked = self.rand(generator, n) >= 0.8
         theta = (math.pi / 6) * self._u(generator, n)
         r = 4.2
         pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta),
@@ -188,8 +187,7 @@ class Avoid(base.QuadEnvCore):
         core = state.core
         cfg = self.cfg
         n = cfg.num_envs
-        cam_seed = torch.randint(0, 2 ** 32, (), generator=generator,
-                                 dtype=torch.int64, device=self.device)
+        cam_seed = self.camera_seed(generator)
 
         acts = self.remap_actions(actions)
         cmds, ctrl = self.run_controller(core, acts)

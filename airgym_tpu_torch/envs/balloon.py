@@ -42,8 +42,7 @@ class Balloon(base.QuadEnvCore):
     has_success = True
 
     def _uniform(self, generator, *shape):
-        return torch.rand(shape, generator=generator, dtype=self.cfg.dtype,
-                          device=self.device)
+        return self.rand(generator, *shape)
 
     def initial_state(self, generator: torch.Generator) -> BalloonState:
         n = self.cfg.num_envs

@@ -93,6 +93,10 @@ class QuadEnvCore:
     has_success = False
     # True for camera tasks: obs = {"image": [N,1,W,H], "observation"}
     obs_is_dict = False
+    # (first env, envs of the whole batch) when the task steps one
+    # contiguous block of a batch split over ranks (parallel/dist.py);
+    # None when it steps the whole batch
+    shard: Optional[Tuple[int, int]] = None
 
     def __init__(self, cfg: BaseEnvCfg, device: torch.device):
         self.cfg = cfg
@@ -102,6 +106,53 @@ class QuadEnvCore:
         lo, hi = self.action_limits(cfg.ctl_mode)
         self._act_lo = torch.tensor(lo, dtype=cfg.dtype, device=device)
         self._act_hi = torch.tensor(hi, dtype=cfg.dtype, device=device)
+
+    # -- random draws -------------------------------------------------------
+
+    def _env_draw(self, sample, shape):
+        """``sample(shape)`` of a draw whose leading axis holds k rows per
+        env, env-major. A sharded task draws the rows of the whole batch
+        and keeps its own, so that the shards together draw what one
+        unsharded task draws."""
+        if self.shard is None:
+            return sample(shape)
+        n = self.cfg.num_envs
+        if not shape or shape[0] % n:
+            raise ValueError(f"a sharded draw of shape {shape} needs a "
+                             f"leading axis of k x {n} env rows")
+        k = shape[0] // n
+        first, total = self.shard
+        whole = sample((total * k,) + tuple(shape[1:]))
+        return whole[first * k:(first + n) * k]
+
+    def rand(self, generator, *shape, dtype=None):
+        """U[0, 1) draws [rows, ...] (see ``_env_draw``)."""
+        return self._env_draw(lambda s: torch.rand(
+            s, generator=generator, dtype=dtype or self.cfg.dtype,
+            device=self.device), shape)
+
+    def randn(self, generator, *shape, dtype=None):
+        """N(0, 1) draws [rows, ...] (see ``_env_draw``)."""
+        return self._env_draw(lambda s: torch.randn(
+            s, generator=generator, dtype=dtype or self.cfg.dtype,
+            device=self.device), shape)
+
+    def randint(self, generator, high: int, *shape):
+        """Integers in [0, high) [rows, ...] (see ``_env_draw``)."""
+        return self._env_draw(lambda s: torch.randint(
+            0, high, s, generator=generator, device=self.device), shape)
+
+    def camera_seed(self, generator):
+        """The render's 32-bit seed, a 0-d int64 drawn on the device. A
+        sharded task offsets it, so that its envs' hash keys
+        (render/raycast._env_seeds) are those of the same envs in the
+        whole batch."""
+        seed = torch.randint(0, 2 ** 32, (), generator=generator,
+                             dtype=torch.int64, device=self.device)
+        if self.shard is None:
+            return seed
+        from airgym_tpu_torch.render import raycast
+        return raycast.offset_seed(seed, self.shard[0])
 
     def action_limits(self, mode: str):
         """(lower, upper) for this task: the per-mode default unless the
@@ -148,18 +199,15 @@ class QuadEnvCore:
             scale = torch.tensor([1e-3] * 9 + [5e-3] * 3 + [2e-2] * 3
                                  + [4e-1] * 3, dtype=obs.dtype,
                                  device=obs.device)
-            obs = obs + scale * torch.randn(obs.shape, generator=generator,
-                                            dtype=obs.dtype,
-                                            device=obs.device)
+            obs = obs + scale * self.randn(generator, *obs.shape,
+                                           dtype=obs.dtype)
         return obs
 
     def randomize_hover_reset(self, generator: torch.Generator,
                               n: int) -> torch.Tensor:
         """pos ~ U(-1,1)^3, tilt 0.01 pi U, yaw 0.05 pi U, v ~ 0.5 U,
         w ~ 0.2 U."""
-        kw = dict(generator=generator, dtype=self.cfg.dtype,
-                  device=self.device)
-        u = lambda *shape: torch.rand(shape, **kw) * 2.0 - 1.0
+        u = lambda *shape: self.rand(generator, *shape) * 2.0 - 1.0
         pos = u(n, 3)
         ang = torch.cat([0.01 * math.pi * u(n, 2), 0.05 * math.pi * u(n, 1)],
                         dim=-1)

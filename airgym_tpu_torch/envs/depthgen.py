@@ -105,8 +105,7 @@ class DepthGen(base.QuadEnvCore):
         return (c.num_thin, c.num_trees, c.num_cubes, c.num_flags)
 
     def _uniform(self, generator, *shape):
-        return torch.rand(shape, generator=generator, dtype=self.cfg.dtype,
-                          device=self.device)
+        return self.rand(generator, *shape)
 
     def _reset_scene(self, generator, n):
         """(pos [n, k, 2], yaw [n, k]) per family: x ~ U(0, L), y ~
@@ -135,8 +134,7 @@ class DepthGen(base.QuadEnvCore):
 
     def initial_state(self, generator: torch.Generator) -> DepthGenState:
         cfg, n = self.cfg, self.cfg.num_envs
-        variants = [torch.randint(0, assets.num_variants(f), (n, k),
-                                  generator=generator, device=self.device)
+        variants = [self.randint(generator, assets.num_variants(f), n, k)
                     for f, k in zip(FAMILIES, self._counts())]
         scene = self._reset_scene(generator, n)
         root = self._reset_root(generator, n)

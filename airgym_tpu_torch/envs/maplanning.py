@@ -106,8 +106,7 @@ class MAPlanning(base.QuadEnvCore):
         return self.flat_n
 
     def _uniform(self, generator, *shape):
-        return torch.rand(shape, generator=generator, dtype=self.cfg.dtype,
-                          device=self.device)
+        return self.rand(generator, *shape)
 
     # -- resets -----------------------------------------------------------
 

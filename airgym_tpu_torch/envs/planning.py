@@ -87,8 +87,7 @@ class Planning(base.QuadEnvCore):
         }
 
     def _uniform(self, generator, *shape):
-        return torch.rand(shape, generator=generator, dtype=self.cfg.dtype,
-                          device=self.device)
+        return self.rand(generator, *shape)
 
     # -- resets -----------------------------------------------------------
 
@@ -122,8 +121,7 @@ class Planning(base.QuadEnvCore):
 
     def initial_state(self, generator: torch.Generator) -> PlanningState:
         n, cfg = self.cfg.num_envs, self.cfg
-        variant = torch.randint(0, 100, (n, cfg.num_trees),
-                                generator=generator, device=self.device)
+        variant = self.randint(generator, 100, n, cfg.num_trees)
         tree_pos, tree_yaw, goal = self._reset_scene(generator, n)
         root = self._reset_root(goal, n)
         cam = torch.zeros((n, 1, cfg.cam_width, cfg.cam_height),
@@ -163,8 +161,7 @@ class Planning(base.QuadEnvCore):
         core = state.core
         cfg = self.cfg
         n = cfg.num_envs
-        cam_seed = torch.randint(0, 2 ** 32, (), generator=generator,
-                                 dtype=torch.int64, device=self.device)
+        cam_seed = self.camera_seed(generator)
 
         acts = self.remap_actions(actions)
         cmds, ctrl = self.run_controller(core, acts)

@@ -56,9 +56,7 @@ class Tracking(base.QuadEnvCore):
 
     def _reset_root(self, generator, n):
         """xy ~ +-0.1, z ~ 1 +- 0.1, tilt 0.1 pi, yaw 0.2 pi."""
-        u = lambda *shape: torch.rand(shape, generator=generator,
-                                      dtype=self.cfg.dtype,
-                                      device=self.device) * 2.0 - 1.0
+        u = lambda *shape: self.rand(generator, *shape) * 2.0 - 1.0
         xy = 0.1 * u(n, 2)
         z = 1.0 + 0.1 * u(n, 1)
         ang = torch.cat([0.1 * math.pi * u(n, 2), 0.2 * math.pi * u(n, 1)],

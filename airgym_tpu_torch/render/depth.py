@@ -11,9 +11,11 @@ of the kernels. What the tasks call: ``render_and_process``, the depth
 render plus the reference's post-processing (clamp at 4.5 m, normalise,
 additive and multiplicative noise, an unnormalised random 5x5 blur) as
 one fused kernel on the card (render/raycast.py, csrc/render_process.cu;
-Planning, Avoid), and ``render_depth_auto``, the raw z-depth kernel
-(csrc/render_depth.cu; MAPlanning, DepthGen, which clamp and normalise
-the clean image themselves); each runs its plain version on the CPU.
+Planning, Avoid, Customized; a camera taller than 126 rows takes the raw
+depth kernel and the plain post-process), and ``render_depth_auto``, the
+raw z-depth kernel (csrc/render_depth.cu; MAPlanning, DepthGen, which
+clamp and normalise the clean image themselves); each runs its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -142,14 +144,15 @@ def render_and_process(cfg: CameraCfg, root_states: torch.Tensor,
     clamp depth, which is exact for the clamped image).
 
     ``seed`` is the 32-bit base of the kernel's hash RNG (an int or a
-    0-d integer tensor). Cameras taller than 126 rows have no fused
-    kernel; the JAX package falls back to an unfused threefry pipeline
-    there, which PyTorch cannot reproduce."""
+    0-d integer tensor). A camera taller than 126 rows has no fused
+    kernel, as in the JAX package: the raw depth kernel renders it
+    (culled at the clamp depth too), then the plain post-process adds the
+    same hash noise with a pixel index that stays unique above 128 rows
+    (raycast.postprocess_hash)."""
     from airgym_tpu_torch.render import raycast
     if cfg.height > raycast.LANES - 2:
-        raise NotImplementedError(
-            f"camera height {cfg.height} > {raycast.LANES - 2}: the "
-            f"unfused render pipeline for tall cameras is not ported, "
-            f"ROADMAP.md queue A item 12c")
+        depth = render_depth_auto(cfg, root_states, scene,
+                                  cull_far_z=cfg.depth_clamp)
+        return raycast.postprocess_hash(cfg, depth, seed)
     return raycast.render_process(cfg, root_states, scene, seed,
                                   cull_far_z=cfg.depth_clamp)

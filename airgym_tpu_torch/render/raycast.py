@@ -201,6 +201,13 @@ def _env_seeds(seed, n: int, device=None) -> torch.Tensor:
     return (seed + hr.mulmod(i, _SEED_STEP)) & hr.M32
 
 
+def offset_seed(seed, first_env: int):
+    """The base seed whose env keys (``_env_seeds``) for envs 0, 1, ...
+    are those of envs first_env, first_env + 1, ... under ``seed``: the
+    seed of one contiguous block of a batch split over ranks."""
+    return (seed + hr.mulmod(int(first_env), _SEED_STEP)) & hr.M32
+
+
 def _hash_kernel_taps(env_seeds: torch.Tensor) -> torch.Tensor:
     """25 blur taps per env in {0..255}/256 (the hash twin of the
     reference's randint(0, 256)/256 kernel), padded to [N, 1, 32]."""
@@ -213,8 +220,12 @@ def _hash_kernel_taps(env_seeds: torch.Tensor) -> torch.Tensor:
 
 def _pixel_lanes(w: int, h: int, device=None) -> torch.Tensor:
     """Hash index of each pixel [W * H]: u * 128 + v, its position in the
-    TPU kernel's (rows, 128) image block."""
+    TPU kernel's (rows, 128) image block, for images of at most 126 rows
+    (the fused kernels' limit); u * H + v for taller ones, where u * 128 + v
+    would give two pixels one index."""
     pix = torch.arange(w * h, dtype=torch.int64, device=device)
+    if h > LANES - 2:
+        return pix
     return (pix // h) * LANES + pix % h
 
 
@@ -260,11 +271,13 @@ def postprocess_hash(cfg: dr.CameraCfg, depth: torch.Tensor,
                      seed) -> torch.Tensor:
     """The fused kernel's post-processing alone: raw z-depth [N, W, H]
     (render/depth.render_depth) -> [N, 1, W, H], same hash RNG and draw
-    order as the kernel."""
+    order as the kernel, over chunks of envs (``_by_chunks``)."""
     n = depth.shape[0]
     seeds = _env_seeds(seed, n, depth.device)
-    return _postprocess(depth, seeds, _hash_kernel_taps(seeds),
-                        float(cfg.depth_clamp))[:, None]
+    taps = _hash_kernel_taps(seeds)
+    clamp = float(cfg.depth_clamp)
+    return _by_chunks(lambda sl: _postprocess(depth[sl], seeds[sl], taps[sl],
+                                              clamp), n)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -552,18 +565,18 @@ def _cast_chunk(inp: RenderInputs, sl: slice) -> torch.Tensor:
     return (t * inv).reshape(-1, W, H)
 
 
-def _by_chunks(fn, inp: RenderInputs, chunk: int) -> torch.Tensor:
-    """``fn(inp, envs)`` over chunks of ``chunk`` envs (the envs are
-    independent; chunks bound the plain versions' memory)."""
-    n = inp.origins.shape[0]
-    return torch.cat([fn(inp, slice(i, min(i + chunk, n)))
+def _by_chunks(fn, n: int, chunk: int = 512) -> torch.Tensor:
+    """``fn(envs)`` over slices of ``chunk`` of the ``n`` envs (the envs
+    are independent; chunks bound the plain versions' memory)."""
+    return torch.cat([fn(slice(i, min(i + chunk, n)))
                       for i in range(0, n, chunk)], dim=0)
 
 
 def render_depth_packed_plain(inp: RenderInputs,
                               chunk: int = 512) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/render_depth.cu`` -> [N, W, H]."""
-    return _by_chunks(_cast_chunk, inp, chunk)
+    return _by_chunks(lambda sl: _cast_chunk(inp, sl),
+                      inp.origins.shape[0], chunk)
 
 
 def render_process_packed_plain(inp: RenderInputs,
@@ -571,9 +584,9 @@ def render_process_packed_plain(inp: RenderInputs,
     """Plain PyTorch version of ``csrc/render_process.cu`` -> [N, 1, W,
     H]: the cast, then the post-processing."""
     clamp = float(inp.cfg.depth_clamp)
-    return _by_chunks(lambda i, sl: _postprocess(
-        _cast_chunk(i, sl), i.seeds[sl], i.taps[sl], clamp),
-        inp, chunk)[:, None]
+    return _by_chunks(lambda sl: _postprocess(
+        _cast_chunk(inp, sl), inp.seeds[sl], inp.taps[sl], clamp),
+        inp.origins.shape[0], chunk)[:, None]
 
 
 def render_depth_fused(cfg: dr.CameraCfg, root_states: torch.Tensor,

@@ -9,6 +9,12 @@ PyTorch (rl/ppo.py). On CPU tensors both ops run their plain versions.
 ``FusedBalloonPPO`` and ``FusedTrackingPPO`` change only the task hooks:
 how the env state is packed and unpacked, the bootstrap observation and
 the per-step success flags.
+
+On several ranks (parallel/dist.py) each rank's rollout kernel runs its
+block of the envs with the seed offset by its first tile, so the ranks'
+rollouts are the one-GPU rollout's rows; the update then takes the plain
+trainer's distributed update, as the JAX fused trainer takes its XLA
+update under a mesh: the update kernel runs one GPU's Adam steps.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 from airgym_tpu_torch.ops import fused_hovering as fh
 from airgym_tpu_torch.ops import fused_rollout as fr
 from airgym_tpu_torch.ops import fused_update as fu
+from airgym_tpu_torch.ops import hash_rng as hr
 from airgym_tpu_torch.physics import quadrotor as qd
 from airgym_tpu_torch.rl import ppo as ppo_mod
 
@@ -31,7 +38,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
 
     fused_task = "hovering"
 
-    def __init__(self, task, cfg=ppo_mod.PPOConfig(), network_kw=None):
+    def __init__(self, task, cfg=ppo_mod.PPOConfig(), network_kw=None,
+                 group=None, shares=None):
         if task.task_name != self.fused_task or task.cfg.ctl_mode != "rate":
             raise NotImplementedError(
                 f"{type(self).__name__} covers {self.fused_task} / rate "
@@ -53,7 +61,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
                 f"plain rl/ppo.PPO (ROADMAP.md queue C, activations in the "
                 f"fused trainer), as the runner picks it")
         self._motor_alpha = qd.motor_alpha(task.params)
-        super().__init__(task, cfg, network_kw=network_kw)
+        super().__init__(task, cfg, network_kw=network_kw, group=group,
+                         shares=shares)
 
     # -- task hooks (overridden by the Balloon and Tracking trainers) -------
 
@@ -71,6 +80,14 @@ class FusedHoveringPPO(ppo_mod.PPO):
         a success notion."""
         return None
 
+    def _rank_seed(self, seed: int) -> int:
+        """The kernel seeds each 1024-env tile as seed + tile *
+        0x01000193 from the env's index in its own launch
+        (csrc/common.cuh tile_seed); offset by this rank's first tile,
+        the tiles draw what they draw in the whole batch's launch."""
+        first_tile = self.rank * (self.num_envs // fr.TILE)
+        return (int(seed) + hr.mulmod(first_tile, 0x01000193)) & hr.M32
+
     # -----------------------------------------------------------------------
 
     def rollout(self, ts: ppo_mod.TrainState, seed: Optional[int] = None):
@@ -80,7 +97,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
                                      generator=ts.seed_generator))
         pack = fr.pack_policy(ts.model, ts.obs_rms)
         packed_out, rec = fr.rollout_fused_policy(
-            self._pack_env(ts.env_state), pack, seed, cfg.horizon,
+            self._pack_env(ts.env_state), pack, self._rank_seed(seed),
+            cfg.horizon,
             obs_noise=self.task.cfg.obs_noise, task=self.fused_task,
             motor_alpha=self._motor_alpha)
 
@@ -137,7 +155,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
         # for done envs, so the post-reset state is never consumed)
         last_obs = self._last_obs(env_state, root, ts.generator)
         with torch.no_grad():
-            _, _, last_value = ts.model(last_obs, ts.obs_rms)
+            _, _, last_value = self._by_rank(
+                lambda o: ts.model(o, ts.obs_rms), last_obs)
 
         ts = dataclasses.replace(
             ts, env_state=env_state, obs=last_obs, ep_return=ep_ret,
@@ -147,9 +166,11 @@ class FusedHoveringPPO(ppo_mod.PPO):
 
     def _can_fuse_update(self, dataset) -> bool:
         # the reference's rules minus its TPU VMEM cap on the batch size
-        # (the net's shape is checked at construction)
+        # (the net's shape is checked at construction); a multi-rank run
+        # and its one-process witness take the plain update
         cfg = self.cfg
-        return (not isinstance(dataset["obs"], dict)
+        return (self.world == 1 and not self.witness
+                and not isinstance(dataset["obs"], dict)
                 and not cfg.clip_value
                 and not cfg.use_smooth_clamp
                 and cfg.lr_schedule in ("adaptive", "fixed", "linear")

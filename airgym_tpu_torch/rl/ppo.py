@@ -36,6 +36,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from airgym_tpu_torch.models import actor_critic as ac
+from airgym_tpu_torch.parallel import dist as pdist
 from airgym_tpu_torch.rl import losses
 from airgym_tpu_torch.rl import moving_stats as mstats
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
@@ -178,16 +179,47 @@ class PPO:
     """Binds a functional task and the actor-critic into train epochs."""
 
     def __init__(self, task, cfg: PPOConfig = PPOConfig(),
-                 network_kw: Optional[dict] = None):
+                 network_kw: Optional[dict] = None,
+                 group: Optional[pdist.Group] = None,
+                 shares: Optional[int] = None):
         self.task = task
         self.cfg = cfg
         self.device = task.device
         # actors: the envs, or envs x robots for a task that flattens its
-        # robot axis (MAPlanning's flat_n)
+        # robot axis (MAPlanning's flat_n); on several ranks, this rank's
         self.num_envs = getattr(task, "flat_n", task.cfg.num_envs)
         self.num_actions = task.cfg.num_actions
         self.network_kw = dict(network_kw or {})
-        self.batch_size = self.num_envs * cfg.horizon
+        # the ranks of a multi-GPU run (parallel/dist.py): each steps its
+        # contiguous block of the envs, and the update runs on the batch
+        # of all of them
+        self.group = group
+        self.world = group.world if group is not None else 1
+        self.rank = group.rank if group is not None else 0
+        if self.world > 1:
+            want = (self.rank * task.cfg.num_envs,
+                    self.world * task.cfg.num_envs)
+            if task.shard != want:
+                raise ValueError(
+                    f"rank {self.rank} of {self.world} steps envs from "
+                    f"{want[0]} of {want[1]}: set task.shard = {want} "
+                    f"(parallel/dist.env_shard), got {task.shard}")
+        # ``shares`` = n makes one process the witness of an n-rank run:
+        # its rollout runs the model on the n ranks' blocks of envs
+        # (``_by_rank``), and its plain update takes every minibatch in
+        # the n ranks' shares and sums their gradients in rank order, so
+        # that it differs from the ranks only where the all-reduce adds
+        # in another order (for two ranks, nowhere)
+        if shares is not None and group is not None:
+            raise ValueError("shares makes one process the witness of a "
+                             "multi-rank run; a rank takes its group's")
+        if shares is not None and self.num_envs % int(shares):
+            raise ValueError(f"{self.num_envs} envs do not split into "
+                             f"{shares} ranks' blocks")
+        self.witness = shares is not None
+        self.shares = self.world if shares is None else int(shares)
+        self.batch_envs = self.num_envs * self.world
+        self.batch_size = self.batch_envs * cfg.horizon
         self._minibatch_error = None
         if cfg.minibatch_size > self.batch_size:
             self._minibatch_error = (
@@ -199,6 +231,10 @@ class PPO:
             self._minibatch_error = (
                 f"minibatch_size ({cfg.minibatch_size}) must divide the "
                 f"rollout batch ({self.batch_size}) into equal minibatches")
+        elif (self.batch_size // self.num_minibatches) % self.shares:
+            self._minibatch_error = (
+                f"a minibatch of {self.batch_size // self.num_minibatches} "
+                f"samples does not split evenly over {self.shares} ranks")
         self.obs_is_dict = bool(getattr(task, "obs_is_dict", False))
         if self.obs_is_dict and self.network_kw.get("image_encoder") is None:
             # the JAX model encodes a dict obs's image with the CNN unless
@@ -268,11 +304,27 @@ class PPO:
 
     # ---------------------------------------------------------------- rollout
 
+    def _by_rank(self, fn, obs):
+        """``fn(obs)`` on the rollout's batch; the witness of an n-rank
+        run (``shares``) applies it to the n ranks' blocks of envs and
+        concatenates, as a GEMM may round otherwise at another batch
+        size (on an H100 the actor's mean of 4096 rows is not bitwise
+        its two halves' of 2048)."""
+        if self.shares == 1 or not self.witness:
+            return fn(obs)
+        n = self.num_envs // self.shares
+        rows = lambda x, r: ({k: v[r * n:(r + 1) * n] for k, v in x.items()}
+                             if isinstance(x, dict) else x[r * n:(r + 1) * n])
+        outs = [fn(rows(obs, r)) for r in range(self.shares)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+
     def _policy(self, ts: TrainState, obs, generator):
-        mu, sigma, value, prenorm = ts.model(obs, self._rms(ts),
-                                             return_prenorm=True)
-        action = mu + sigma * torch.randn(mu.shape, generator=generator,
-                                          dtype=mu.dtype, device=mu.device)
+        mu, sigma, value, prenorm = self._by_rank(
+            lambda o: ts.model(o, self._rms(ts), return_prenorm=True), obs)
+        action = mu + sigma * self.task.randn(generator, *mu.shape,
+                                              dtype=mu.dtype)
         nlp = ac.neglogp(action, mu, sigma, torch.log(sigma))
         return action, nlp, mu, sigma, value[..., 0], prenorm
 
@@ -308,7 +360,8 @@ class PPO:
         if dedup:
             self._check_phase(env_state)
             c0 = int(env_state.counter)
-            feat = ts.model.encode_image(obs["image"], rms)
+            feat = self._by_rank(
+                lambda img: ts.model.encode_image(img, rms), obs["image"])
             frames = torch.empty((self.num_frames,) + obs["image"].shape,
                                  dtype=torch.bfloat16,
                                  device=dev)
@@ -380,10 +433,12 @@ class PPO:
             obs = out.obs
             if dedup and render:
                 # the just-rendered frame: features for the next block
-                feat = ts.model.encode_image(obs["image"], rms)
+                feat = self._by_rank(
+                    lambda img: ts.model.encode_image(img, rms),
+                    obs["image"])
                 frames[(h + 1) // ce] = store(obs["image"])
 
-        _, _, last_value = ts.model(obs, rms)
+        _, _, last_value = self._by_rank(lambda o: ts.model(o, rms), obs)
         traj = {k: torch.stack(v) for k, v in rec.items()}
         if self.obs_is_dict:
             traj["obs"] = {"observation": traj["obs"]}
@@ -449,42 +504,63 @@ class PPO:
                    "mu": mu.detach(), "sigma": sigma.detach()}
         return total, aux
 
-    def _env_window(self, k: int, mb_size: int):
+    def _share(self, k: int, mb_size: int, rank: Optional[int] = None):
+        """(start, length): the samples of minibatch k that rank ``rank``
+        (this rank by default) takes in the update, an equal contiguous
+        part of the minibatch (all of it on one rank)."""
+        part = mb_size // self.shares
+        rank = self.rank if rank is None else rank
+        return k * mb_size + rank * part, part
+
+    def _env_window(self, start: int, length: int):
         """(me, e0): the envs e0 .. e0 + me - 1 that the env-major span
-        [k*mb, (k+1)*mb) touches; me = ceil(mb / H) + 1, clamped to the
-        env count (the reference leaves it unclamped in
+        [start, start + length) touches; me = ceil(length / H) + 1,
+        clamped to the env count (the reference leaves it unclamped in
         _mb_from_scan_layout, ppo.py:602)."""
-        H, N = self.cfg.horizon, self.num_envs
-        me = min(-(-mb_size // H) + 1, N)
-        return me, min(k * mb_size // H, N - me)
+        H, N = self.cfg.horizon, self.batch_envs
+        me = min(-(-length // H) + 1, N)
+        return me, min(start // H, N - me)
 
     def unique_window(self, frames: torch.Tensor, frame_idx: torch.Tensor,
-                      k: int, mb_size: int):
-        """Unique frames of minibatch k [F * me, ...] and each sample's
-        index into them: sample j = n * H + h reads frame frame_idx[h] of
-        env n, at f * me + (n - e0)."""
+                      k: int, mb_size: int, rank: Optional[int] = None):
+        """Unique frames of a rank's share of minibatch k [F * me, ...]
+        and each sample's index into them: sample j = n * H + h reads
+        frame frame_idx[h] of env n, at f * me + (n - e0)."""
         H = self.cfg.horizon
-        me, e0 = self._env_window(k, mb_size)
+        start, length = self._share(k, mb_size, rank)
+        me, e0 = self._env_window(start, length)
         win = frames[:, e0:e0 + me]
         img_u = win.reshape((frames.shape[0] * me,) + frames.shape[2:])
-        j = k * mb_size + torch.arange(mb_size, device=frames.device)
+        j = start + torch.arange(length, device=frames.device)
         return img_u, frame_idx[j % H] * me + (j // H - e0)
 
-    def _mb_from_scan_layout(self, img: torch.Tensor, k: int, mb_size: int):
-        """Env-major minibatch [mb, ...] out of the rollout-layout images
-        [H, N, ...] without transposing the whole buffer."""
+    def _mb_from_scan_layout(self, img: torch.Tensor, k: int, mb_size: int,
+                             rank: Optional[int] = None):
+        """Env-major share of minibatch k [length, ...] out of the
+        rollout-layout images [H, N, ...] without transposing the whole
+        buffer."""
         H = self.cfg.horizon
-        me, e0 = self._env_window(k, mb_size)
+        start, length = self._share(k, mb_size, rank)
+        me, e0 = self._env_window(start, length)
         win = img[:, e0:e0 + me].transpose(0, 1).reshape(
             (me * H,) + img.shape[2:])
-        off = k * mb_size - e0 * H
-        return win[off:off + mb_size]
+        off = start - e0 * H
+        return win[off:off + length]
 
     def update(self, ts: TrainState, dataset: Dict[str, Any]):
         """mini_epochs x contiguous minibatches of autograd + Adam steps,
         the mu / sigma write-back the KL of later mini-epochs reads, the
         adaptive lr at each mini-epoch's end; metrics of the last
-        mini-epoch."""
+        mini-epoch.
+
+        On several ranks every rank holds the whole batch (``train_epoch``
+        gathers it) and takes its share of each minibatch (``_share``):
+        its loss is the mean over its share over the rank count, so the
+        gradients and the metrics summed over the ranks by one flat
+        all-reduce per Adam step are the minibatch's; every rank then
+        takes the same clip, Adam step and learning rate. The witness of
+        an n-rank run (``shares``) computes the n shares in turn and sums
+        them in rank order."""
         cfg = self.cfg
         nmb = self.num_minibatches
         mb_size = self.batch_size // nmb
@@ -516,23 +592,42 @@ class PPO:
         for _ in range(cfg.mini_epochs):
             rows = []
             for k in range(nmb):
-                sl = slice(k * mb_size, (k + 1) * mb_size)
-                mb = {key: val[sl] for key, val in dataset.items()}
-                if isinstance(obs, dict):
-                    mob = {key: val[sl] for key, val in obs.items()}
-                    if frames is not None:
-                        mob["image_unique"], mob["feat_index"] = \
-                            self.unique_window(frames, frame_idx, k, mb_size)
-                    elif scan_img is not None:
-                        mob["image"] = self._mb_from_scan_layout(
-                            scan_img, k, mb_size)
-                else:
-                    mob = obs[sl]
-                mb["obs"], mb["mus"], mb["sigmas"] = mob, mus[sl], sigmas[sl]
-                loss, aux = self._loss_fn(model, rms, ts.value_rms, mb)
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(params, grads)]
+                grads = row = None
+                written = []
+                for r in ([self.rank] if self.group is not None
+                          else range(self.shares)):
+                    start, length = self._share(k, mb_size, r)
+                    sl = slice(start, start + length)
+                    mb = {key: val[sl] for key, val in dataset.items()}
+                    if isinstance(obs, dict):
+                        mob = {key: val[sl] for key, val in obs.items()}
+                        if frames is not None:
+                            mob["image_unique"], mob["feat_index"] = \
+                                self.unique_window(frames, frame_idx, k,
+                                                   mb_size, r)
+                        elif scan_img is not None:
+                            mob["image"] = self._mb_from_scan_layout(
+                                scan_img, k, mb_size, r)
+                    else:
+                        mob = obs[sl]
+                    mb["obs"], mb["mus"], mb["sigmas"] = \
+                        mob, mus[sl], sigmas[sl]
+                    loss, aux = self._loss_fn(model, rms, ts.value_rms, mb)
+                    if self.shares > 1:
+                        loss = loss / self.shares
+                    g = torch.autograd.grad(loss, params, allow_unused=True)
+                    g = [torch.zeros_like(p) if gi is None else gi
+                         for p, gi in zip(params, g)]
+                    rw = torch.stack([loss.detach()] + [
+                        aux[key] / self.shares for key in METRICS[1:]])
+                    if grads is None:
+                        grads, row = g, rw
+                    else:
+                        grads = [a + b for a, b in zip(grads, g)]
+                        row = row + rw
+                    written.append((sl, aux.pop("mu"), aux.pop("sigma")))
+                if self.group is not None:
+                    grads, row = self._all_reduce(grads, row)
                 with torch.no_grad():
                     if cfg.truncate_grads:
                         gnorm = torch.linalg.vector_norm(
@@ -541,10 +636,9 @@ class PPO:
                             cfg.grad_norm / torch.clamp_min(gnorm, 1e-6), 1.0)
                         torch._foreach_mul_(grads, scale)
                     adam_step(params, grads, m, v, count, lr)
-                    mus[sl] = aux.pop("mu")
-                    sigmas[sl] = aux.pop("sigma")
-                rows.append(torch.stack([loss.detach()] + [
-                    aux[key] for key in METRICS[1:]]))
+                    for sl, mu, sigma in written:
+                        mus[sl], sigmas[sl] = mu, sigma
+                rows.append(row)
             means = torch.stack(rows).mean(0)
             if cfg.lr_schedule == "adaptive":
                 av_kl, thr = means[1], cfg.kl_threshold
@@ -556,6 +650,40 @@ class PPO:
         adam = {"m": dict(zip(names, m)), "v": dict(zip(names, v)),
                 "count": count}
         return dataclasses.replace(ts, adam=adam, lr=lr), metrics
+
+    def _all_reduce(self, grads, row):
+        """Sum the gradients and the metrics row over the ranks in one flat
+        all-reduce. The gradients come back as tensors of their own, as
+        autograd gives them: the clip's torch._foreach_norm adds in
+        another order over views at unaligned offsets of one buffer (on an
+        H100)."""
+        sizes = [g.numel() for g in grads]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [row])
+        flat = pdist.all_reduce(flat)
+        parts = torch.split(flat, sizes + [row.numel()])
+        return ([p.reshape(g.shape).clone() for p, g in zip(parts, grads)],
+                parts[-1])
+
+    def _gather(self, traj: Rollout, last_value, infos, episodes):
+        """The rollouts of all ranks as one batch along the env axis (the
+        frame indices are the same on every rank), the per-term info
+        means averaged over the ranks."""
+        cat = lambda x, dim: (None if x is None
+                              else pdist.all_gather_cat(x, dim))
+        fields = {}
+        for k, v in traj._asdict().items():
+            if k == "frame_idx":
+                fields[k] = v
+            elif isinstance(v, dict):
+                fields[k] = {kk: cat(vv, 1) for kk, vv in v.items()}
+            else:
+                fields[k] = cat(v, 1)
+        if infos:
+            sums = pdist.all_reduce(torch.stack(
+                [v.to(torch.float32) for v in infos.values()]))
+            infos = {k: s / self.world for k, s in zip(infos, sums)}
+        return (Rollout(**fields), cat(last_value, 0), infos,
+                tuple(cat(e, 0) for e in episodes))
 
     # -------------------------------------------------------------- epoch
 
@@ -589,6 +717,20 @@ class PPO:
             raise ValueError(self._minibatch_error)
         cfg = self.cfg
         ts, traj, last_value, infos = self.rollout(ts, seed=seed)
+        episodes = (ts.last_ep_return, ts.last_ep_length, ts.last_ep_success,
+                    ts.last_ep_env_success)
+        if self.group is not None:
+            traj, last_value, infos, episodes = self._gather(
+                traj, last_value, infos, episodes)
+        elif self.witness:
+            # the ranks' gathered batch is contiguous, and a reduction's
+            # order may follow the layout
+            dense = lambda v: (None if v is None else
+                               {k: dense(x) for k, x in v.items()}
+                               if isinstance(v, dict) else v.contiguous())
+            traj = Rollout(**{k: dense(v) for k, v in traj._asdict().items()})
+            last_value = last_value.contiguous()
+        ep_return, ep_length, ep_success, ep_env_success = episodes
         values, adv, returns = self.compute_gae(ts, traj, last_value)
 
         if cfg.normalize_input:
@@ -642,15 +784,15 @@ class PPO:
                                  frame=ts.frame + self.batch_size)
         metrics = dict(metrics)
         metrics["lr"] = ts.lr
-        metrics["mean_reward"] = torch.mean(ts.last_ep_return)
-        metrics["mean_ep_length"] = torch.mean(ts.last_ep_length)
+        metrics["mean_reward"] = torch.mean(ep_return)
+        metrics["mean_ep_length"] = torch.mean(ep_length)
         metrics["reward_raw_per_step"] = torch.mean(traj.rewards)
-        if ts.last_ep_success is not None:
+        if ep_success is not None:
             # share of the last finished episodes that ended in success
-            metrics["success_rate"] = torch.mean(ts.last_ep_success)
-        if ts.last_ep_env_success is not None:
+            metrics["success_rate"] = torch.mean(ep_success)
+        if ep_env_success is not None:
             # the env-level rate: per-robot success is capped near 1 / R
-            metrics["env_success_rate"] = torch.mean(ts.last_ep_env_success)
+            metrics["env_success_rate"] = torch.mean(ep_env_success)
         var_ret = torch.var(returns, unbiased=False)
         metrics["explained_variance"] = 1.0 - torch.var(
             returns - values, unbiased=False) / (var_ret + 1e-8)

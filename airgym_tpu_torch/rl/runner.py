@@ -33,7 +33,16 @@ observation widths (the robot-count curriculum,
 
 Play (``Player``) evaluates the policy's clamped mean in chunks of steps
 and reports the mean reward per finished episode and, where the task has
-one, the success rate. Multi-GPU runs are ROADMAP.md queue A item 15.
+one, the success rate.
+
+Multi-GPU (parallel/dist.py): under ``torchrun`` (or in a process group
+the caller joined) each rank builds its contiguous block of the YAML's
+envs on ``cuda:LOCAL_RANK`` and trains it with the others; the fused
+trainer is taken only when every rank's block is a multiple of 1024 envs.
+The global RNGs take seed + rank as the reference's ranks do; the
+trainer's own generators take the run's seed on every rank, so that the
+ranks' envs are the unsharded run's. Only rank 0 writes the run
+directory, its records and its checkpoints, and prints.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ import torch
 
 from airgym_tpu_torch import envs
 from airgym_tpu_torch.ops import fused_rollout as fr
+from airgym_tpu_torch.parallel import dist as pdist
 from airgym_tpu_torch.rl import checkpoint as ckpt
 from airgym_tpu_torch.rl import metrics as metrics_mod
 from airgym_tpu_torch.rl import ppo as ppo_mod
@@ -157,20 +167,39 @@ class Runner:
         return network_kw_from_params(self.params)
 
     def build(self, args: Dict[str, Any]):
+        """-> (task, trainer, seed). In a process group (joined here from
+        torchrun's environment where it sets one) the task is this rank's
+        block of the envs and the trainer one of the group's.
+        ``args['shares']`` = n makes a one-process run the witness of an
+        n-rank run (``PPO(shares=)``)."""
         cfg = self.params.get("config", {})
         task_name = args.get("task") or cfg.get("env_name", "hovering")
         num_envs = int(args.get("num_envs") or cfg.get("num_actors", 256))
         ctl_mode = args.get("ctl_mode", "rate")
         seed = args.get("seed")
         seed = int(self.params.get("seed", 42) if seed is None else seed)
+        group = pdist.init_from_env()
         if seed == -1:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
+            if group is not None:
+                seed = pdist.broadcast_int(seed)
+        device = args.get("device")
+        first, n_local, world = 0, num_envs, 1
+        if group is not None:
+            world = group.world
+            first, n_local = pdist.env_shard(num_envs, group.rank, world)
+            if device is None:
+                device = f"cuda:{group.local_rank}"
+            # the reference seeds each rank's global RNGs with seed + rank
+            torch.manual_seed(seed + group.rank)
+            np.random.seed(seed + group.rank)
         env_kw = dict(cfg.get("env_config", {}) or {})
         env_kw.pop("seed", None)
         use_image = env_kw.pop("use_image", None)
         task = envs.make_task(task_name, ctl_mode=ctl_mode,
-                              num_envs=num_envs, device=args.get("device"),
-                              **env_kw)
+                              num_envs=n_local, device=device, **env_kw)
+        if group is not None:
+            task.shard = (first, num_envs)
         if use_image is not None and bool(use_image) != task.obs_is_dict:
             raise ValueError(
                 f"env_config.use_image={use_image} contradicts task "
@@ -178,14 +207,15 @@ class Runner:
         network_kw = self.network_kw()
         fused = (cfg.get("use_fused_rollout") and ctl_mode == "rate"
                  and task_name in FUSED_TRAINERS
-                 and num_envs % fr.TILE == 0
+                 and num_envs % (fr.TILE * world) == 0
                  and tuple(network_kw.get("units", fr.UNITS)) == fr.UNITS
                  and network_kw.get("activation", "elu") == "elu"
                  and not network_kw.get("separate")
                  and network_kw.get("fixed_sigma", True))
         trainer_cls = FUSED_TRAINERS[task_name] if fused else ppo_mod.PPO
         trainer = trainer_cls(task, ppo_config_from_params(self.params),
-                              network_kw=network_kw)
+                              network_kw=network_kw, group=group,
+                              shares=args.get("shares"))
         return task, trainer, seed
 
     def run(self, args: Dict[str, Any]):
@@ -247,11 +277,12 @@ class Runner:
     def run_train(self, args: Dict[str, Any]):
         task, trainer, seed = self.build(args)
         cfg = trainer.cfg
+        main = pdist.is_main_process()
         name = self.params.get("config", {}).get("name", task.task_name)
         run_dir = os.path.join(args.get("run_root") or "runs",
                                f"{name}_{time.strftime('%d-%H-%M-%S')}")
         ck_dir = os.path.join(run_dir, "nn")
-        writer = metrics_mod.MetricsWriter(run_dir)
+        writer = metrics_mod.MetricsWriter(run_dir) if main else None
         ts = self._maybe_load_pretrained_vae(trainer.init(seed))
         if args.get("checkpoint"):
             ts = restore(ts, args["checkpoint"])
@@ -292,40 +323,48 @@ class Runner:
                            fps=frames_since / max(now - t_last, 1e-9))
                 t_last, frames_since = now, 0
                 history.append(row)
-                writer.add_scalars(self.scalars(row, m), ts.frame)
-                print(f"fps total: {row['fps']:.0f} epoch: {epoch}/"
-                      f"{cfg.max_epochs} frames: {ts.frame} "
-                      f"mean_reward: {row['mean_reward']:.2f} "
-                      f"loss: {row['loss']:.4f} kl: {row['kl']:.5f} "
-                      f"lr: {row['lr']:.2e}"
-                      + "".join(f" {k}: {row[k]:.3f}" for k in SUCCESS
-                                if k in row), flush=True)
-                if epoch >= cfg.save_best_after and \
-                        row["mean_reward"] > best_reward:
-                    best_reward = row["mean_reward"]
-                    self.save(ts, os.path.join(ck_dir, name), best_reward)
-                gate = ("env_success_rate" if "env_success_rate" in row
-                        else "success_rate")
-                if epoch >= cfg.save_best_after and \
-                        row.get(gate, 0.0) > best_success:
-                    best_success = row[gate]
-                    self.save(ts, os.path.join(ck_dir, f"{name}_best_success"),
-                              row["mean_reward"])
-                if cfg.save_frequency and epoch % cfg.save_frequency == 0:
-                    self.save(ts, os.path.join(ck_dir,
-                                               f"last_{name}_ep_{epoch}"),
-                              row["mean_reward"])
-                if viz_every and epoch % viz_every == 0:
-                    self._dump_training_viz(task, trainer, ts, run_dir, epoch)
+                if main:
+                    writer.add_scalars(self.scalars(row, m), ts.frame)
+                    print(f"fps total: {row['fps']:.0f} epoch: {epoch}/"
+                          f"{cfg.max_epochs} frames: {ts.frame} "
+                          f"mean_reward: {row['mean_reward']:.2f} "
+                          f"loss: {row['loss']:.4f} kl: {row['kl']:.5f} "
+                          f"lr: {row['lr']:.2e}"
+                          + "".join(f" {k}: {row[k]:.3f}" for k in SUCCESS
+                                    if k in row), flush=True)
+                    if epoch >= cfg.save_best_after and \
+                            row["mean_reward"] > best_reward:
+                        best_reward = row["mean_reward"]
+                        self.save(ts, os.path.join(ck_dir, name), best_reward)
+                    gate = ("env_success_rate" if "env_success_rate" in row
+                            else "success_rate")
+                    if epoch >= cfg.save_best_after and \
+                            row.get(gate, 0.0) > best_success:
+                        best_success = row[gate]
+                        self.save(ts, os.path.join(
+                            ck_dir, f"{name}_best_success"),
+                            row["mean_reward"])
+                    if cfg.save_frequency and epoch % cfg.save_frequency == 0:
+                        self.save(ts, os.path.join(ck_dir,
+                                                   f"last_{name}_ep_{epoch}"),
+                                  row["mean_reward"])
+                    if viz_every and epoch % viz_every == 0:
+                        self._dump_training_viz(task, trainer, ts, run_dir,
+                                                epoch)
                 if row["mean_reward"] > cfg.score_to_win:
                     break
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
         last = os.path.join(ck_dir, f"last_{name}")
-        self.save(ts, last, history[-1]["mean_reward"] if history else -1e9)
+        if main:
+            self.save(ts, last,
+                      history[-1]["mean_reward"] if history else -1e9)
         info = {"best_reward": best_reward, "epochs": epoch,
-                "wall_time_s": time.time() - start, "run_dir": run_dir,
-                "checkpoint": last + ".pt", "history": history}
+                "wall_time_s": time.time() - start,
+                "run_dir": run_dir if main else None,
+                "checkpoint": last + ".pt" if main else None,
+                "history": history, "seed": seed}
         if task.has_success:
             info["best_success"] = best_success
         return ts, info

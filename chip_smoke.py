@@ -78,11 +78,11 @@ Phases, each of which exits non-zero on failure:
      after 30 env steps), at DepthGen's 1024-env scene of 168 records
      (unguarded) and on a 256-env mixed scene culled at 4.5 m;
  16. train MAPlanning (configs/ppo_maplanning.yaml at its full width,
-     16,384 actors) for 2 epochs through the runner, counters checked (1
+     16,384 actors) for 1 epoch through the runner, counters checked (1
      raw depth launch at init, 6 per epoch, nothing else), save and reload,
      print the peak device memory, profile one epoch (raw depth, convs,
      the rest);
- 17. train Avoid (configs/ppo_avoid.yaml, 4096 envs) for 2 epochs (the
+ 17. train Avoid (configs/ppo_avoid.yaml, 4096 envs) for 1 epoch (the
      render + process kernel: 1 launch at init, 16 per epoch), save and
      reload, profile one epoch;
  18. generate DepthGen's dataset at 1024 envs, 2048 frames (2 raw depth
@@ -149,6 +149,28 @@ Phases, each of which exits non-zero on failure:
      robot channels equal the source's within 1e-6 of max|ref|; then the
      runner's transfer_checkpoint branch trains 1 epoch; raw depth
      launches counted in both runs;
+ 31. train Customized (Planning's YAML network and PPO blocks, env_name
+     customized, an empty env_config: 4096 envs, 212 x 120, eight thin
+     trees over 8 x 8 m) for 1 epoch through the runner: the render +
+     process kernel launched as the cadence gives and nothing else, the
+     images of 8 envs of the run's last state against the plain pipeline,
+     and a forced reset of env 0 that leaves every other env's scene and
+     asset states bitwise unchanged; ms per epoch, peak device memory;
+ 32. the same at 212 x 240, a camera taller than 126 rows: the raw depth
+     kernel launched as the cadence gives and the render + process
+     kernel never, its raw depth on 8 envs against its plain version, no
+     pixel index shared by two pixels, the image moments beside phase
+     31's;
+ 33. multi-GPU over torch.distributed (parallel/dist.dryrun): two ranks
+     on this card over gloo (over NCCL where the machine has two cards)
+     train Hovering's YAML at 4096 envs for 2 epochs (the rollout kernel
+     on each rank) and Planning's at 4096 envs for 1 epoch (the render +
+     process kernel on each rank), each held to a one-process run of the
+     same seed (Hovering's with the plain update the ranks take) within
+     tests/test_multichip.py's tolerances (Hovering on its first epoch;
+     the second's differences printed), the ranks' parameters bitwise
+     equal, rank 0 alone writing; then one rank over NCCL trains
+     Hovering for 1 epoch, bitwise the one-process epoch;
 and print one JSON line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -235,8 +257,10 @@ CONV_WORDS = ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
 # (>= 5e8), so a pixel is a hit below DEPTH_HIT
 DEPTH_ATOL = 1e-5
 DEPTH_HIT = 1e8
-MAPLANNING_EPOCHS = 2           # at the YAML's full width: 16,384 actors
-AVOID_EPOCHS = 2
+# at the YAML's full width (16,384 actors) / 4096 envs; one epoch each
+# keeps the whole run under ten minutes
+MAPLANNING_EPOCHS = 1
+AVOID_EPOCHS = 1
 DEPTHGEN_ENVS, DEPTHGEN_FRAMES = 1024, 2048
 # the fused CNN kernels vs their plain versions, of max|ref|: float32 sums
 # in another order (forward / gradients); bf16 also flips a few roundings
@@ -271,6 +295,13 @@ OPTION_EPOCHS, OPTION_PLAY_STEPS = 3, 100       # phase 27
 # phase 30: the policy on zero-padded robot channels against the source's,
 # of max|ref| (float32 products over another input width)
 TRANSFER_RTOL = 1e-6
+# phases 31-32: Customized at the Planning YAML's width, and its camera
+# taller than the fused kernel's 126 rows
+CUSTOM_ENVS, TALL_HEIGHT = 4096, 240
+# phase 33: the metrics of a run's gathered rollout, set before its first
+# Adam step
+ROLLOUT_METRICS = ("mean_reward", "mean_ep_length", "reward_raw_per_step",
+                   "explained_variance", "success_rate")
 
 T0 = time.time()
 
@@ -1398,6 +1429,258 @@ def warm_start_maplanning(runner_mod, ckpt, rc, kernels, run_root, m_yaml,
             + renders[4][0]["render_depth/render_depth"])
 
 
+def scene_rows(scene, k):
+    """The first ``k`` envs of a SceneForRender."""
+    return type(scene)(*[type(p)(*[t[:k] for t in p])
+                         if isinstance(p, tuple) else p for p in scene])
+
+
+def scene_tensors(state):
+    """Every per-env tensor of a Customized state's scene and asset
+    states."""
+    return [t for p in state.scene if isinstance(p, tuple)
+            for t in p] + [state.asset_states]
+
+
+def train_customized(runner_mod, envs, rc, kernels, run_root, p_yaml,
+                     height, card):
+    """Phases 31 (212 x 120) and 32 (212 x 240): Customized at the
+    Planning YAML's 4096 envs for 1 epoch through the runner. Returns the
+    image moments of the run's last state and the launches."""
+    cfg = json.loads(json.dumps(p_yaml))
+    c = cfg["params"]["config"]
+    c.update(env_name="customized", name="ppo_customized", max_epochs=1,
+             save_best_after=1, num_actors=CUSTOM_ENVS)
+    c["env_config"] = {} if height == 120 else {"cam_height": height}
+    tall = height > rc.LANES - 2
+    tag = f"customized 212x{height}"
+    args = {"task": "customized", "ctl_mode": "rate", "device": "cuda",
+            "run_root": run_root, "seed": 42}
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ts, info = runner_mod.Runner().load(cfg).run_train(args)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    got = launched(kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    task = envs.make_task("customized", num_envs=CUSTOM_ENVS, device="cuda",
+                          **c["env_config"])
+    renders = 1 + int(c["horizon_length"]) // task.cam_every
+    want = {("render_depth/render_depth" if tall
+             else "render_process/render_process"): renders}
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    row = info["history"][-1]
+    bad = [k for k, v in row.items() if not math.isfinite(v)]
+    check(info["epochs"] == 1 and not bad, f"{tag}: {info['epochs']} "
+                                           f"epochs, not finite {bad}")
+    state = ts.env_state
+    cam = state.camera
+    check(tuple(cam.shape) == (CUSTOM_ENVS, 1, 212, height)
+          and bool(torch.isfinite(cam).all()), f"{tag}: camera "
+                                               f"{tuple(cam.shape)}")
+    moments = (float(cam.mean()), float(cam.std()))
+
+    # the kernel against its plain version on 8 envs of the last state
+    k = 8
+    root, scene = state.core.root[:k], scene_rows(state.scene, k)
+    if tall:
+        inp = rc.prepare(task.cam_cfg, root, scene, None,
+                         task.cam_cfg.depth_clamp)
+        err, _ = depth_vs_plain(rc, inp, tag)
+        lanes = rc._pixel_lanes(212, height, torch.device("cuda"))
+        check(int(lanes.unique().numel()) == 212 * height,
+              f"{tag}: two pixels share a hash index")
+    else:
+        inp = rc.prepare(task.cam_cfg, root, scene, 1234,
+                         task.cam_cfg.depth_clamp)
+        err, _ = render_vs_plain(rc, inp, tag)
+
+    # a forced reset of env 0: every other env's scene keeps its bits
+    prog = state.core.progress.clone()
+    prog[0] = task.cfg.max_episode_length - 2
+    s = state._replace(core=state.core._replace(progress=prog))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    s2, out = task.step(s, torch.zeros((CUSTOM_ENVS, 4), device="cuda"),
+                        gen, render=False)
+    keep = ~out.reset
+    same = all(torch.equal(a[keep], b[keep])
+               for a, b in zip(scene_tensors(state), scene_tensors(s2)))
+    moved = not torch.equal(state.scene.cylinders.center[0],
+                            s2.scene.cylinders.center[0])
+    check(bool(out.reset[0]) and same and moved,
+          f"{tag}: forced reset of env 0: reset {bool(out.reset[0])}, "
+          f"others unchanged {same}, env 0 drawn anew {moved}")
+    print(f"[train {tag}] 1 epoch x {CUSTOM_ENVS} x "
+          f"{c['horizon_length']} through the runner in {secs:.2f} s, ms "
+          f"per epoch {epoch_ms(info)}; launches {got}; peak device memory "
+          f"{peak:.2f} GB; kernel vs plain on {k} envs {err:.3e}; a forced "
+          f"reset of env 0 redrew its scene and left the other "
+          f"{int(keep.sum())} envs' scenes bitwise unchanged; image mean "
+          f"{moments[0]:.4f} std {moments[1]:.4f}; card {card}",
+          flush=True)
+    return moments, got
+
+
+def flat_params(ts):
+    return torch.cat([p.detach().reshape(-1).cpu()
+                      for p in ts.model.parameters()]).numpy()
+
+
+def epoch_params(run_dir, name, epoch):
+    """The model's floating tensors in the run's checkpoint of ``epoch``,
+    flattened in state-dict order."""
+    from airgym_tpu_torch.rl import checkpoint as ckpt
+    sd = ckpt.load(os.path.join(run_dir, "nn",
+                                f"last_{name}_ep_{epoch}.pt"))["model"]
+    return torch.cat([v.reshape(-1).float() for v in sd.values()
+                      if v.is_floating_point()]).numpy()
+
+
+def multi_gpu(runner_mod, run_root, h_yaml, p_yaml, card):
+    """Phase 33: parallel/dist.dryrun of Hovering (2 epochs) and Planning
+    (1 epoch) at their YAMLs' 4096 envs on two ranks, each held to two
+    one-process runs of the same seed:
+
+    * its witness (``shares=2``: every minibatch in the two ranks'
+      shares, their gradients added in rank order, as the two ranks'
+      all-reduce adds them): every epoch's metrics and the parameters,
+      bit for bit. This holds the distributed update on the card: the
+      ranks' frame windows, the gradient all-reduce, the clip, the KL and
+      the adaptive learning rate;
+    * the plain one-process run (``shares=1``, whole minibatches):
+      within tests/test_multichip.py's tolerances before Adam carries the
+      order of the sums into the weights (Hovering's first epoch and its
+      checkpoint, Planning's rollout metrics, ROLLOUT_METRICS). Past that
+      point the ranks' and the witness's distances from the plain run
+      are printed side by side: equal distances say that the order of the
+      sums is all that separates the ranks from one process.
+
+    Then one rank over NCCL against the one-process Hovering epoch (the
+    fused update), bit for bit."""
+    from airgym_tpu_torch.envs.planning import PlanningCfg
+    from airgym_tpu_torch.parallel import dist as pdist
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    args = {"ctl_mode": "rate", "device": "cuda", "seed": 42}
+    strip = lambda h: [{k: v for k, v in row.items()
+                        if k not in ("seconds", "fps")} for row in h]
+
+    def cfg_of(yaml_cfg, epochs):
+        cfg = json.loads(json.dumps(yaml_cfg))
+        cfg["params"]["config"].update(max_epochs=epochs, save_best_after=1,
+                                       save_frequency=1)
+        return cfg
+
+    def one_process(cfg, task, tag, shares=None):
+        ts, info = runner_mod.Runner().load(cfg).run_train(
+            {**args, "task": task, "shares": shares,
+             "run_root": os.path.join(run_root, f"one_{tag}")})
+        torch.cuda.synchronize()
+        return flat_params(ts), info["history"], info["run_dir"]
+
+    def ranks(world, be, cfg, task, tag, plain, tol, epochs_held,
+              keys=None, witness=None):
+        """dryrun; the whole run against ``witness``, bit for bit; the
+        first ``epochs_held`` epochs' metrics (those of ``keys``, or all)
+        and the parameters after them against the plain run."""
+        torch.cuda.empty_cache()
+        root = os.path.join(run_root, f"ranks_{tag}_{be}_{world}")
+        shutil.rmtree(root, ignore_errors=True)
+        t0 = time.time()
+        reports = pdist.dryrun(world, cfg, {**args, "task": task,
+                                            "run_root": root}, be)
+        secs = time.time() - t0
+        hist, ref_hist = reports[0]["history"], plain[1]
+        p_end = reports[0]["params"]
+        name = cfg["params"]["config"]["name"]
+        p_held = epoch_params(reports[0]["run_dir"], name, epochs_held)
+        ref_held = epoch_params(plain[2], name, epochs_held)
+        held_err = float(np.max(np.abs(p_held - ref_held)))
+        rtol, atol, param_atol = tol
+        bad = pdist.compare_history(hist[:epochs_held],
+                                    ref_hist[:epochs_held], rtol, atol,
+                                    **({"keys": keys} if keys else {}))
+        check(not bad and (param_atol is None or held_err <= param_atol),
+              f"multi-gpu {tag}: against the plain one-process run after "
+              f"epoch {epochs_held}: parameters {held_err:.3e} apart (limit "
+              f"{param_atol}), metrics beyond rtol {rtol} / atol {atol}: "
+              f"{bad}")
+        gap = lambda p: float(np.max(np.abs(p - plain[0])))
+        seen = ""
+        if witness is not None:
+            w_bad = pdist.compare_history(hist, witness[1], 0.0, 0.0)
+            w_err = float(np.max(np.abs(p_end - witness[0])))
+            check(not w_bad and w_err == 0.0,
+                  f"multi-gpu {tag}: the ranks against their one-process "
+                  f"witness (shares={world}): parameters {w_err:.3e} "
+                  f"apart, metrics not bit-equal: {w_bad}")
+            w_rows = "; ".join(
+                f"epoch {a['epoch']}: loss {a['loss']:.6f}, kl "
+                f"{a['kl']:.4e}, clip_frac {a['clip_frac']:.4f}"
+                for a in witness[1])
+            seen = (f"; bit for bit the witness (shares={world}) in every "
+                    f"epoch ({w_rows}); distance from the plain run at the "
+                    f"end: ranks {gap(p_end):.3e}, witness "
+                    f"{gap(witness[0]):.3e}")
+        for r in reports:
+            print(f"[multi-gpu {tag}] backend {r['backend']} world "
+                  f"{r['world']} rank {r['rank']}: launches "
+                  f"{r['launches']}, torch seed {r['torch_seed']}, "
+                  f"wrote {'the run' if r['checkpoint'] else 'nothing'}",
+                  flush=True)
+        rows = "; ".join(
+            f"epoch {a['epoch']}: mean_reward {a['mean_reward']:.6f} / "
+            f"{b['mean_reward']:.6f}, loss {a['loss']:.6f} / "
+            f"{b['loss']:.6f}, kl {a['kl']:.4e} / {b['kl']:.4e}, clip_frac "
+            f"{a['clip_frac']:.4f} / {b['clip_frac']:.4f}, lr "
+            f"{a['lr']:.3e}" for a, b in zip(hist, ref_hist))
+        ms = lambda h: [round(1e3 * x["seconds"], 1) for x in h]
+        print(f"[multi-gpu {tag}] backend {be} world {world}: {len(hist)} "
+              f"epochs in {secs:.2f} s with the ranks' start-up, ms per "
+              f"epoch {ms(hist)} (one process {ms(ref_hist)}); ranks "
+              f"bitwise equal; against the plain one-process run "
+              f"(ranks / one process): {rows}; parameters "
+              f"{held_err:.3e} apart after epoch {epochs_held} (held to "
+              f"{tol}: metrics rtol, atol, parameters atol), "
+              f"{gap(p_end):.3e} at the end{seen}; card {card}", flush=True)
+        return reports, strip(hist) == strip(ref_hist) and np.array_equal(
+            p_end, plain[0])
+
+    h_cfg = cfg_of(h_yaml, 2)
+    plain = one_process(h_cfg, "hovering", "hovering", shares=1)
+    witness = one_process(h_cfg, "hovering", "hovering_w2", shares=2)
+    reports, _ = ranks(2, backend, h_cfg, "hovering", "hovering", plain,
+                       pdist.VECTOR_TOL, 1, witness=witness)
+    for r in reports:
+        check(r["launches"] == {"fused_rollout/hovering": 2},
+              f"hovering rank {r['rank']}: launches {r['launches']}, "
+              f"expected 2 rollout launches and no update kernel")
+    p_cfg = cfg_of(p_yaml, 1)
+    plain = one_process(p_cfg, "planning", "planning", shares=1)
+    witness = one_process(p_cfg, "planning", "planning_w2", shares=2)
+    reports, _ = ranks(2, backend, p_cfg, "planning", "planning", plain,
+                       pdist.VISION_TOL, 1, ROLLOUT_METRICS, witness)
+    hc = int(p_cfg["params"]["config"]["horizon_length"])
+    for r in reports:
+        check(r["launches"] == {"render_process/render_process":
+                                1 + hc // PlanningCfg().cam_every},
+              f"planning rank {r['rank']}: launches {r['launches']}")
+
+    h1 = cfg_of(h_yaml, 1)
+    plain = one_process(h1, "hovering", "hovering_1")
+    reports, bitwise = ranks(1, "nccl", h1, "hovering", "hovering_1", plain,
+                             pdist.VECTOR_TOL, 1)
+    check(bitwise, "one rank over NCCL: the epoch differs from the "
+                   "one-process epoch, want bitwise equal")
+    check(reports[0]["launches"] == {"fused_rollout/hovering": 1,
+                                     "fused_update/obs18": 1},
+          f"one rank over NCCL: launches {reports[0]['launches']}")
+    print(f"[multi-gpu hovering_1] backend nccl world 1: the epoch is "
+          f"bitwise the one-process epoch (parameters and metrics)",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2120,6 +2403,25 @@ def main():
                           load_cfg("maplanning"), card)
     print(f"[phases 27-30] done at {time.time() - T0:.1f} s, "
           f"{time.time() - t27:.1f} s for the four", flush=True)
+
+    # ---- 31-32. Customized at 212 x 120 and at 212 x 240 --------------------
+    t31 = time.time()
+    moments = {}
+    for n, height in ((31, 120), (32, TALL_HEIGHT)):
+        phase(n)
+        moments[height], _ = train_customized(
+            runner_mod, envs, rc, kernels, run_root, load_cfg("planning"),
+            height, card)
+    print(f"[train customized] image moments (mean, std): 212 x 120 "
+          f"{moments[120]}, 212 x {TALL_HEIGHT} {moments[TALL_HEIGHT]}",
+          flush=True)
+
+    # ---- 33. multi-GPU ------------------------------------------------------
+    phase(33)
+    multi_gpu(runner_mod, run_root, load_cfg("hovering"),
+              load_cfg("planning"), card)
+    print(f"[phases 31-33] done at {time.time() - T0:.1f} s, "
+          f"{time.time() - t31:.1f} s for the three", flush=True)
 
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]

@@ -12,7 +12,7 @@ import torch
 from airgym_tpu import assets as jassets
 from airgym_tpu_torch import assets as tassets
 
-FAMILIES = ("thin", "trees", "cubes", "flags", "balls")
+FAMILIES = ("thin", "vtrees", "trees", "cubes", "flags", "balls", "objects")
 
 
 def test_registry_and_semantic_ids_match_jax():
@@ -45,9 +45,14 @@ def test_family_geometry_matches_jax(family):
 
 
 def test_unported_families_refuse():
-    for family in ("vtrees", "objects"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tassets.family_geometry(family)
+    """Every family of the registry has its table now (vtrees: 13
+    cylinders a variant; objects: one box or sphere a variant); a name
+    outside the registry still raises."""
+    vt, ob = tassets.family_geometry("vtrees"), tassets.family_geometry(
+        "objects")
+    assert vt.cyls.shape == (100, 13, 9) and (vt.cyls[..., 8] == 1).all()
+    assert ob.boxes.shape == (5, 1, 7) and ob.sphs.shape == (5, 1, 5)
+    np.testing.assert_array_equal(ob.boxes[:, 0, 6] + ob.sphs[:, 0, 4], 1)
     with pytest.raises(KeyError):
         tassets.family_geometry("no_such_family")
 

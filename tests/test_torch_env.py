@@ -157,8 +157,9 @@ def test_obs_noise_scales():
 
 
 def test_make_task_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenvs.make_task("customized", device="cpu")
+    # every task of the JAX package builds, Customized included
+    assert tenvs.make_task("customized", num_envs=2,
+                           device="cpu").task_name == "customized"
     # every control mode of the reference is ported; an unknown one raises
     for mode in ("pos", "vel", "atti", "prop"):
         assert tenvs.make_task("hovering", ctl_mode=mode,

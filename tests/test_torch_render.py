@@ -286,10 +286,14 @@ def test_render_process_box_scene_unguarded():
 
 
 def test_render_and_process_refuses_tall_cameras():
+    """The fused kernel still refuses a camera taller than 126 rows;
+    render_and_process takes it through the raw depth and the plain
+    post-process (tests/test_torch_tall_camera.py holds its noise)."""
     s = to_torch({"spheres": scene_np(n=1)["spheres"]})
     r = torch.from_numpy(roots_np(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdr.render_and_process(tdr.CameraCfg(width=32, height=130), r, s, 0)
+    tall = tdr.render_and_process(tdr.CameraCfg(width=32, height=130), r, s,
+                                  0)
+    assert tall.shape == (1, 1, 32, 130) and bool(torch.isfinite(tall).all())
     with pytest.raises(ValueError, match="H <= 126"):
         trc.render_process(tdr.CameraCfg(width=32, height=130), r, s, 0)
     img = tdr.render_and_process(CAM_T, r, s, 5)

@@ -39,11 +39,13 @@ def test_vecenv_glue():
 
 
 @pytest.mark.parametrize("name", ["hovering", "balloon", "tracking",
-                                  "planning", "avoid", "maplanning"])
+                                  "planning", "avoid", "maplanning",
+                                  "customized"])
 def test_env_info_matches_jax(name):
     """Spaces and agent counts of every trainable task, Dict spaces for
     the camera tasks; the registry holds every registered task."""
-    kw = dict(CAM) if name in ("planning", "avoid", "maplanning") else {}
+    kw = (dict(CAM) if name in ("planning", "avoid", "maplanning",
+                                "customized") else {})
     j = jvecenv.create_vec_env(name, 2, **kw).get_env_info()
     t = tvecenv.create_vec_env(name, 2, device="cpu", **kw).get_env_info()
     assert t["agents"] == j["agents"] and t["value_size"] == j["value_size"]
@@ -58,7 +60,7 @@ def test_env_info_matches_jax(name):
     else:
         assert to.shape == jo.shape
     assert set(tvecenv.configurations) == set(tenvs.registered_tasks())
-    assert "customized" not in tvecenv.configurations
+    assert "customized" in tvecenv.configurations
 
 
 def test_task_wrapper_contract_with_robot_rows():
