@@ -47,6 +47,24 @@ def x152b_params(dt: float = 0.01, motor_tau: float = 0.0) -> QuadrotorParams:
                            dt=dt, motor_tau=motor_tau)
 
 
+# --- state slicing helpers (13-float IsaacGym layout) ---------------------
+
+def positions(s: torch.Tensor) -> torch.Tensor:
+    return s[..., 0:3]
+
+
+def quats(s: torch.Tensor) -> torch.Tensor:
+    return s[..., 3:7]
+
+
+def linvels(s: torch.Tensor) -> torch.Tensor:
+    return s[..., 7:10]
+
+
+def angvels(s: torch.Tensor) -> torch.Tensor:
+    return s[..., 10:13]
+
+
 def pack_state(pos, quat, linvel, angvel) -> torch.Tensor:
     return torch.cat([pos, quat, linvel, angvel], dim=-1)
 

@@ -25,11 +25,14 @@
   conv kernels become torch OIHW).
 * ``transfer_obs_width``: the robot-count curriculum's warm start across
   observation-vector widths.
+* ``safe_filesystem_op``: every checkpoint read and write above, and the
+  runner's pretrained-encoder load, retries on ``OSError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -86,13 +89,29 @@ def payload(ts) -> Dict[str, Any]:
     }
 
 
+def safe_filesystem_op(fn, *args, attempts: int = 10, **kwargs):
+    """``fn(*args, **kwargs)``, retried on ``OSError`` (an NFS hiccup)
+    after sleeps of 0.1 * (i + 1) s; the last error is raised once the
+    ``attempts`` run out (reference torch_ext.safe_filesystem_op,
+    lib/core/torch_ext.py:51-66)."""
+    last = None
+    for i in range(attempts):
+        try:
+            return fn(*args, **kwargs)
+        except OSError as e:
+            last = e
+            time.sleep(0.1 * (i + 1))
+    raise last
+
+
 def save(path: str, ts) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(payload(ts), path)
+    safe_filesystem_op(torch.save, payload(ts), path)
 
 
 def load(path: str) -> Dict[str, Any]:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return safe_filesystem_op(torch.load, path, map_location="cpu",
+                              weights_only=True)
 
 
 def restore(ts, ck: Dict[str, Any]):
@@ -167,14 +186,15 @@ def export_pth(path: str, ts, last_mean_rewards: float = -1e9) -> None:
         "env_state": None,
     }
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(state, path)
+    safe_filesystem_op(torch.save, state, path)
 
 
 def import_pth(path: str, model, obs_rms=None, value_rms=None):
     """Load a reference .pth into ``model`` (in place); returns the
     (obs_rms, value_rms, meta) it carries, or the given ones where it
     has none."""
-    ck = torch.load(path, map_location="cpu", weights_only=True)
+    ck = safe_filesystem_op(torch.load, path, map_location="cpu",
+                            weights_only=True)
     sd = {k: torch.as_tensor(v) for k, v in ck["model"].items()}
     own = model.state_dict()
     model.load_state_dict({

@@ -238,7 +238,9 @@ class Runner:
         def load_sd(cfg):
             path = os.path.join(cfg.get("model_folder", "."),
                                 cfg["model_file"])
-            sd = torch.load(path, map_location="cpu", weights_only=False)
+            sd = ckpt.safe_filesystem_op(torch.load, path,
+                                         map_location="cpu",
+                                         weights_only=False)
             if isinstance(sd, dict) and "model_state_dict" in sd:
                 sd = sd["model_state_dict"]
             return sd

@@ -171,6 +171,23 @@ Phases, each of which exits non-zero on failure:
      the second's differences printed), the ranks' parameters bitwise
      equal, rank 0 alone writing; then one rank over NCCL trains
      Hovering for 1 epoch, bitwise the one-process epoch;
+ 34. the host-side C++ PX4 cascade (control/native.py, built with g++
+     under build/native) at Hovering's 4096 envs in all five modes for 50
+     steps of seeded random states and actions, a reset mask every 10
+     steps, against px4.run on the card: commands and state within 2e-4;
+     the g++ build's seconds and the ms per step of each;
+ 35. the library on the card against the CPU (within 1e-6 of max|ref|):
+     the losses at 2048 x 4, the three moving-stats updates over 98,304,
+     TensorPID over 4096 x 3; a VectorizedReplayBuffer of 2^20 rows of
+     Hovering's transitions (176 MB) filled by 4096-env adds past one
+     wrap, bitwise the CPU ring, sampled at 2048 (only stored rows); its
+     ms per add and per sample;
+ 36. the action / state stream (utils/action_stream.py): run_bridged_play
+     from phase 5's checkpoint at 4096 envs for 300 steps, a loopback
+     client sending a target before the run and reading every line: 300
+     whole lines in step order, bitwise a replay of the same boot with the
+     target from step 1; steps/s; then stream_play.main --device cuda
+     --steps 50 --hz 0 against a client; phases 34-36 launch no kernel;
 and print one JSON line listing every ported kernel.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -302,6 +319,21 @@ CUSTOM_ENVS, TALL_HEIGHT = 4096, 240
 # Adam step
 ROLLOUT_METRICS = ("mean_reward", "mean_ep_length", "reward_raw_per_step",
                    "explained_variance", "success_rate")
+# phase 34: the native cascade at Hovering's YAML width, against px4.run
+# on the card (tests/test_native_cascade.py's tolerance)
+NATIVE_ENVS, NATIVE_STEPS, NATIVE_RESET_EVERY, NATIVE_ATOL = 4096, 50, 10, 2e-4
+# phase 35: the library on the card against the CPU, of max|ref|; the
+# losses at Hovering's minibatch, the moving stats over its batch, the
+# replay ring at 2^20 rows of Hovering's transitions
+LIB_RTOL = 1e-6
+LIB_MINIBATCH, LIB_BATCH, LIB_ACTIONS = 2048, 98_304, 4
+REPLAY_CAPACITY, REPLAY_ADDS, REPLAY_SAMPLE = 2 ** 20, 300, 2048
+# phase 36: the stream's target, inside the survival envelope (dist > 4 m
+# kills) and yawed by 0.3 rad, and the bridged run's length
+STREAM_STEPS, STREAM_SEED = 300, 36
+STREAM_TARGET = [math.cos(0.3), -math.sin(0.3), 0.0, math.sin(0.3),
+                 math.cos(0.3), 0.0, 0.0, 0.0, 1.0, 1.0, -0.5, 0.5,
+                 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
 
 T0 = time.time()
 
@@ -1681,6 +1713,313 @@ def multi_gpu(runner_mod, run_root, h_yaml, p_yaml, card):
           flush=True)
 
 
+def native_cascade(card):
+    """Phase 34: the host-side C++ cascade (control/native.py) at
+    NATIVE_ENVS in all five modes for NATIVE_STEPS steps of seeded random
+    states and actions, a random reset mask every NATIVE_RESET_EVERY
+    steps, against px4.run on the card: commands and the five state
+    fields within NATIVE_ATOL. Prints the g++ build's seconds and the ms
+    per step of each after the first (the CUDA cascade's up to a device
+    sync)."""
+    from airgym_tpu_torch.control import native, px4
+    fresh = not native.lib_path().exists()
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[native] g++ build {time.perf_counter() - t0:.2f} s "
+          f"({'built' if fresh else 'found'} {native.lib_path().name}) "
+          f"[{card}]", flush=True)
+    rng = np.random.default_rng(34)
+    n, g, dev = NATIVE_ENVS, px4.CascadeGains(), torch.device("cuda")
+
+    def states():
+        q = rng.normal(size=(n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        return np.concatenate([rng.uniform(-2, 2, (n, 3)), q,
+                               rng.uniform(-3, 3, (n, 6))],
+                              1).astype(np.float32)
+
+    for mode in px4.CONTROL_MODES:
+        ctl = native.ParallelControl(mode, n)
+        cs = px4.init_state(n, device=dev)
+        host_s = dev_s = worst = 0.0
+        for step in range(NATIVE_STEPS):
+            root = states()
+            act = rng.uniform(-1, 1, (n, px4.num_actions(mode))).astype(
+                np.float32)
+            if mode in ("rate", "atti", "prop"):
+                act[:, -1] = np.abs(act[:, -1])
+            if step and step % NATIVE_RESET_EVERY == 0:
+                mask = rng.random(n) < 0.5
+                ctl.reset(mask, root[:, 3:7])
+                cs = px4.reset_state(cs, torch.from_numpy(mask).to(dev),
+                                     torch.from_numpy(root[:, 3:7]).to(dev))
+            root_d, act_d = (torch.from_numpy(a).to(dev) for a in (root, act))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmds_d, cs = px4.run(mode, g, cs, root_d, act_d, 0.01)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cmds_n = ctl.update(root, act, 0.01)
+            if step:                    # the first step of each warms up
+                host_s += time.perf_counter() - t1
+                dev_s += t1 - t0
+            st = ctl.state_as_cascade_state(dev)
+            errs = [(cmds_d - torch.from_numpy(cmds_n).to(dev)).abs().max()]
+            errs += [(getattr(cs, f) - getattr(st, f)).abs().max()
+                     for f in px4.CascadeState._fields]
+            worst = max(worst, float(torch.stack(errs).max()))
+        check(worst <= NATIVE_ATOL,
+              f"native cascade {mode}: max |err| {worst:.3e} > {NATIVE_ATOL}")
+        timed = NATIVE_STEPS - 1
+        print(f"[native {mode}] {n} envs x {NATIVE_STEPS} steps: max |err| "
+              f"{worst:.3e} (commands and state, tol {NATIVE_ATOL}); ms per "
+              f"step (the last {timed}) host C++ {1e3 * host_s / timed:.4f},"
+              f" CUDA px4.run {1e3 * dev_s / timed:.4f} [{card}]",
+              flush=True)
+
+
+def library_on_card(card):
+    """Phase 35: the losses, the moving-stats updates, TensorPID and the
+    replay ring, each on the card and on the CPU from the same inputs:
+    results within LIB_RTOL of max|ref|, ring contents bitwise equal.
+    Prints the ring's bytes and its ms per add and per sample."""
+    from airgym_tpu_torch.rl import losses
+    from airgym_tpu_torch.rl import moving_stats as ms
+    from airgym_tpu_torch.rl import replay
+    from airgym_tpu_torch.utils import tensor_pid
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    gen = torch.Generator().manual_seed(35)
+    rand = lambda *shape: torch.randn(shape, generator=gen)
+    b, a = LIB_MINIBATCH, LIB_ACTIONS
+    old = rand(b)
+    new, adv, proxy = old + 0.3 * rand(b), rand(b), old + 0.2 * rand(b)
+    mu0, mu1 = 1.5 * rand(b, a), 1.5 * rand(b, a)
+    s0, s1 = torch.exp(0.3 * rand(b, a) - 0.5), torch.exp(0.3 * rand(b, a))
+    vp, v, ret = 2 * rand(b), 2 * rand(b), 2 * rand(b)
+    batch = 3.0 + 2.0 * rand(3, LIB_BATCH)
+    errs = rand(6, 4096, 3)
+    pid = tensor_pid.TensorPID(kp=1.0, ki=0.5, kd=0.1, integral_lim=0.05,
+                               derivative_lim=30.0, output_lim=1.5)
+
+    def run(d):
+        to = lambda *xs: [x.to(d) for x in xs]
+        o, nw, ad, px, m0, m1, z0, z1, p, vv, r = to(
+            old, new, adv, proxy, mu0, mu1, s0, s1, vp, v, ret)
+        out = {}
+        for name in ("actor_loss", "smoothed_actor_loss"):
+            out[name] = getattr(losses, name)(o, nw, ad, True, 0.2)
+        for clip in (True, False):
+            out[f"critic_loss[{clip}]"] = losses.critic_loss(p, vv, 0.2, r,
+                                                             clip)
+        out["decoupled_actor_loss"] = losses.decoupled_actor_loss(
+            o, nw, px, ad, 0.2)
+        out["bound_loss"] = losses.bound_loss(m0)
+        out["policy_kl"] = losses.policy_kl(m0, z0, m1, z1, False)
+        out["explained_variance"] = losses.explained_variance(nw, o)
+        out["policy_clip_fraction"] = losses.policy_clip_fraction(nw, o, 0.2)
+        for upd in ("update_mean_std", "update_min_max", "update_percentile"):
+            st = ms.MovingStats.create((), device=d)
+            for x in batch.to(d):
+                st = getattr(ms, upd)(st, x)
+            out[f"{upd}.center"], out[f"{upd}.scale"] = st.center, st.scale
+            out[f"{upd}.denormalize"] = ms.denormalize(st, ad)
+        st = pid.init((4096, 3), device=d)
+        for i, e in enumerate(errs.to(d)):
+            u, st = pid.step(st, e, 0.01)
+            if i == 3:
+                st = pid.reset(st, e[:, 0] > 0)
+            out[f"pid[{i}]"] = u
+        return out
+
+    on_card, on_cpu = run(dev), run(cpu)
+    worst = 0.0
+    for k, ref in on_cpu.items():
+        err = float((on_card[k].cpu() - ref).abs().max())
+        tol = LIB_RTOL * max(float(ref.abs().max()), 1e-30)
+        check(err <= tol, f"library {k}: card vs CPU {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
+    print(f"[library] {len(on_cpu)} results (losses at {b} x {a}, moving "
+          f"stats over {LIB_BATCH}, TensorPID over 4096 x 3): card vs CPU "
+          f"within {worst:.3e} of max|ref| (tol {LIB_RTOL}) [{card}]",
+          flush=True)
+
+    # the replay ring: Hovering's transitions, 4096-env batches past a wrap
+    n, cap = NATIVE_ENVS, REPLAY_CAPACITY
+    rings = {"card": replay.VectorizedReplayBuffer((18,), (4,), cap,
+                                                   device="cuda"),
+             "host": replay.VectorizedReplayBuffer((18,), (4,), cap,
+                                                   device="cpu")}
+    states = {d: r.create() for d, r in rings.items()}
+    row_bytes = sum(x[0].numel() * x.element_size()
+                    for x in states["card"][:5])
+    g_dev = torch.Generator(device=dev)
+    g_dev.manual_seed(35)
+    add_ms = []
+    for i in range(REPLAY_ADDS):
+        obs = torch.rand((n, 18), generator=g_dev, device=dev)
+        obs[:, 0] = torch.arange(i * n, (i + 1) * n, device=dev,
+                                 dtype=torch.float32)
+        tr = (obs, torch.rand((n, 4), generator=g_dev, device=dev),
+              torch.rand((n,), generator=g_dev, device=dev),
+              torch.rand((n, 18), generator=g_dev, device=dev),
+              torch.rand((n,), generator=g_dev, device=dev) < 0.05)
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        states["card"] = rings["card"].add(states["card"], *tr)
+        ev1.record()
+        states["host"] = rings["host"].add(states["host"],
+                                         *(x.cpu() for x in tr))
+        ev1.synchronize()
+        add_ms.append(ev0.elapsed_time(ev1))
+    sc, sh = states["card"], states["host"]
+    for f in replay.VectorizedReplayState._fields:
+        check(torch.equal(getattr(sc, f).cpu(), getattr(sh, f)),
+              f"replay ring: field {f} differs between the card and the CPU")
+    check(bool(sc.full) and int(sc.idx) == (REPLAY_ADDS * n) % cap,
+          f"replay ring: cursor {int(sc.idx)}, full {bool(sc.full)}")
+    sample = lambda: rings["card"].sample(sc, g_dev, REPLAY_SAMPLE)
+    obs, act, rew, nobs, done = sample()
+    t = obs[:, 0].long().cpu()
+    check(bool((t >= REPLAY_ADDS * n - cap).all()),
+          "replay sample: a row that the ring overwrote")
+    slot = t % cap
+    for x, buf in ((obs, sh.obs), (act, sh.actions), (rew, sh.rewards),
+                   (nobs, sh.next_obs), (done, sh.dones)):
+        check(torch.equal(x.cpu(), buf[slot]),
+              "replay sample: a row that is not the stored one")
+    sample_ms = cuda_time_ms(sample)
+    print(f"[replay] ring of {cap} rows x {row_bytes} B = "
+          f"{cap * row_bytes / 1e6:.1f} MB on the card, {REPLAY_ADDS} adds "
+          f"of {n} (wrapped), ring bitwise the CPU's; ms per add "
+          f"{statistics.median(add_ms):.4f} (median), per sample of "
+          f"{REPLAY_SAMPLE} {sample_ms:.4f} [{card}]", flush=True)
+
+
+def _read_lines(sock, want, deadline_s, out):
+    """Append to ``out`` up to ``want`` JSON lines (None for a line that
+    does not parse) within ``deadline_s`` seconds."""
+    sock.settimeout(0.5)
+    buf = b""
+    end = time.monotonic() + deadline_s
+    while len(out) < want and time.monotonic() < end:
+        try:
+            data = sock.recv(1 << 16)
+        except TimeoutError:
+            continue
+        except OSError:
+            break
+        if not data:
+            break
+        buf += data
+        while b"\n" in buf:
+            line, buf = buf.split(b"\n", 1)
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                out.append(None)
+
+
+def stream_bridge(runner_mod, h_yaml, checkpoint, card):
+    """Phase 36: run_bridged_play on the card at Hovering's YAML width from
+    ``checkpoint`` for STREAM_STEPS steps, a loopback client that sends
+    STREAM_TARGET before the run and reads every line; the published env-0
+    actions and roots bitwise a replay of the same boot without a server
+    with the target from step 1; then stream_play.main once against a
+    client. Prints the bridged loop's steps/s."""
+    import socket
+    import threading
+    from airgym_tpu_torch import stream_play
+    from airgym_tpu_torch.utils import action_stream as ast
+    task, trainer, _ = runner_mod.Runner().load(h_yaml).build({
+        "task": "hovering", "ctl_mode": "rate", "device": "cuda"})
+    ts = runner_mod.restore(trainer.init(0), checkpoint)
+    n = task.cfg.num_envs
+    server = ast.ActionStreamServer()
+    client = socket.create_connection(server.address, timeout=10)
+    lines = []
+    try:
+        client.sendall((json.dumps({"target_state": STREAM_TARGET})
+                        + "\n").encode())
+        reader = threading.Thread(target=_read_lines, daemon=True, args=(
+            client, STREAM_STEPS, 300.0, lines))
+        reader.start()
+        t0 = time.perf_counter()
+        ast.run_bridged_play(task, trainer, ts, server, STREAM_STEPS,
+                             seed=STREAM_SEED, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        reader.join(timeout=60)
+        check(not reader.is_alive(), "stream: the client is still reading")
+    finally:
+        client.close()
+        server.close()
+    check(len(lines) == STREAM_STEPS and None not in lines,
+          f"stream: {len(lines)} lines, {lines.count(None)} torn; want "
+          f"{STREAM_STEPS} whole")
+    check([m["step"] for m in lines] == list(range(STREAM_STEPS)),
+          "stream: the lines are not in step order")
+    check(all(len(m["action"]) == 4 and len(m["root_state"]) == 13
+              for m in lines), "stream: a line of the wrong lengths")
+    check(server.dropped == 0, f"stream: {server.dropped} lines dropped")
+
+    # the replay: the same boot, the target from step 1, no server
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(STREAM_SEED)
+        state = task.initial_state(gen)
+        state, out = task.step(state, torch.zeros(
+            (n, task.cfg.num_actions), device="cuda"), gen)
+        step_fn = ast.make_retargetable_step(task)
+        target, rows = task.target, []
+        new_target = torch.tensor(STREAM_TARGET, device="cuda").expand(
+            task.target.shape)
+        for t in range(STREAM_STEPS):
+            mu, _, _ = ts.model(out.obs, trainer._rms(ts))
+            action = torch.clamp(mu, -1.0, 1.0)
+            state, out = step_fn(state, action, target, gen)
+            rows.append(torch.cat([action[0], state.core.root[0, :13]]))
+            target = new_target
+        rows = torch.stack(rows).cpu().numpy()
+    got = np.array([m["action"] + m["root_state"] for m in lines],
+                   np.float32)
+    check(np.array_equal(got, rows), "stream: the published actions / roots "
+          "differ from the replay with the target from step 1")
+    moved = float(np.abs(rows[-1, 4:7] - np.array([1.0, -0.5, 0.5])).max())
+    print(f"[stream] {n} envs x {STREAM_STEPS} steps bridged: "
+          f"{STREAM_STEPS / secs:.1f} steps/s ({1e3 * secs / STREAM_STEPS:.3f}"
+          f" ms per step with its host copy and socket I/O); {len(lines)} "
+          f"whole lines, bitwise the replay; env 0 ends {moved:.3f} m from "
+          f"the streamed target [{card}]", flush=True)
+
+    clients = []
+
+    class Connected(ast.ActionStreamServer):
+        """A server with a client connected before the first publish."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            clients.append(socket.create_connection(self.address,
+                                                    timeout=10))
+
+    stream_play.ActionStreamServer = Connected
+    try:
+        rc = stream_play.main(["--device", "cuda", "--steps", "50", "--hz",
+                               "0", "--port", "0", "--num_envs", str(n),
+                               "--checkpoint", checkpoint[:-3] + ".pth"])
+        got = []
+        _read_lines(clients[0], 50, 60.0, got)
+    finally:
+        stream_play.ActionStreamServer = ast.ActionStreamServer
+        for c in clients:
+            c.close()
+    check(rc == 0 and len(got) == 50 and None not in got
+          and [m["step"] for m in got] == list(range(50)),
+          f"stream_play.main: rc {rc}, {len(got)} lines")
+    print(f"[stream_play] python -m airgym_tpu_torch.stream_play --device "
+          f"cuda --steps 50 --hz 0 --num_envs {n}: 50 whole lines [{card}]",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1833,6 +2172,7 @@ def main():
     _, ts_run, info = train_and_reload(runner_mod, ckpt, yaml_cfg,
                                        "hovering", EPOCHS, run_root, g,
                                        kernels)
+    hover_checkpoint = info["checkpoint"]      # phase 36 plays it
     launches = {"hovering": fr.KERNEL.launches["hovering"],
                 "obs18": fu.KERNEL.launches["obs18"]}
     print(f"[train hovering] {EPOCHS} epochs in {info['train_s']:.2f} s; "
@@ -2422,6 +2762,21 @@ def main():
               load_cfg("planning"), card)
     print(f"[phases 31-33] done at {time.time() - T0:.1f} s, "
           f"{time.time() - t31:.1f} s for the three", flush=True)
+
+    # ---- 34-36. the native cascade, the library, the stream -----------------
+    t34 = time.time()
+    reset_counts(kernels)
+    phase(34)
+    native_cascade(card)
+    phase(35)
+    library_on_card(card)
+    phase(36)
+    stream_bridge(runner_mod, load_cfg("hovering"), hover_checkpoint, card)
+    check(launched(kernels) == {}, f"phases 34-36 launched kernels: "
+                                   f"{launched(kernels)}")
+    print(f"[phases 34-36] done at {time.time() - T0:.1f} s, "
+          f"{time.time() - t34:.1f} s for the three; no kernel launched",
+          flush=True)
 
     def entry(name, key, source, replaces, err):
         k_ms, p_ms, b_ms, b_by = times[key]
