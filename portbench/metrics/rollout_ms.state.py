@@ -1,0 +1,6 @@
+"""Mean ms of trainer.rollout over the window's epochs, a sync either side (Hovering's fused rollout)."""
+from portbench.metrics import _common
+
+
+def read(ctx):
+    return _common.span_ms(ctx, "rollout")
