@@ -32,6 +32,7 @@ from airgym_tpu_torch.kernels import build
 from airgym_tpu_torch.ops import hash_rng as hr
 from airgym_tpu_torch.ops import transcendental as tm
 from airgym_tpu_torch.physics import quadrotor as qd
+from airgym_tpu_torch.rl import profiling
 
 TILE = 1024                    # envs per Pallas grid cell: the RNG's tile
 _F = 40                        # fields in the packed record
@@ -326,12 +327,15 @@ def rollout_fused(packed: torch.Tensor, action: torch.Tensor, seed: int,
     """[40, N] packed state + remapped rate action [4] -> (new packed
     state [40, N], per-env reward sums [N]) after ``steps`` env steps.
     motor_alpha = exp(-dt/motor_tau) (0.0 = instantaneous thrust). Rows
-    29:40 pass through unchanged."""
-    _check(packed, action)
-    if not packed.is_cuda:
-        return rollout_fused_plain(packed, action, seed, steps,
-                                   motor_alpha=motor_alpha)
-    return _kernel_rollout(KERNEL, packed, action, seed, steps, motor_alpha)
+    29:40 pass through unchanged. One ``rollout_fused`` span
+    (rl/profiling.py) over the host side."""
+    with profiling.span("rollout_fused"):
+        _check(packed, action)
+        if not packed.is_cuda:
+            return rollout_fused_plain(packed, action, seed, steps,
+                                       motor_alpha=motor_alpha)
+        return _kernel_rollout(KERNEL, packed, action, seed, steps,
+                               motor_alpha)
 
 
 def _kernel_rollout(kernel, packed, action, seed, steps, motor_alpha):

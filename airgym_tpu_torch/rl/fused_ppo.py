@@ -29,6 +29,7 @@ from airgym_tpu_torch.ops import fused_update as fu
 from airgym_tpu_torch.ops import hash_rng as hr
 from airgym_tpu_torch.physics import quadrotor as qd
 from airgym_tpu_torch.rl import ppo as ppo_mod
+from airgym_tpu_torch.rl import profiling
 
 
 class FusedHoveringPPO(ppo_mod.PPO):
@@ -122,34 +123,37 @@ class FusedHoveringPPO(ppo_mod.PPO):
                 f"{type(self).__name__}._fused_success and "
                 f"{type(self.task).__name__}.has_success disagree")
 
-        # episode bookkeeping
-        ep_ret, ep_len = ts.ep_return, ts.ep_length
-        last_ret, last_len = ts.last_ep_return, ts.last_ep_length
-        last_suc = ts.last_ep_success
-        for t in range(cfg.horizon):
-            d = dones[t]
-            ep_ret = ep_ret + rewards[t]
-            ep_len = ep_len + 1.0
-            last_ret = torch.where(d, ep_ret, last_ret)
-            last_len = torch.where(d, ep_len, last_len)
-            if last_suc is not None:
-                last_suc = torch.where(d, successes[t].to(ep_ret.dtype),
-                                       last_suc)
-            alive = 1.0 - d.to(ep_ret.dtype)
-            ep_ret, ep_len = ep_ret * alive, ep_len * alive
+        # episode bookkeeping and the env-state rebuild
+        with profiling.span("bookkeeping"):
+            ep_ret, ep_len = ts.ep_return, ts.ep_length
+            last_ret, last_len = ts.last_ep_return, ts.last_ep_length
+            last_suc = ts.last_ep_success
+            for t in range(cfg.horizon):
+                d = dones[t]
+                ep_ret = ep_ret + rewards[t]
+                ep_len = ep_len + 1.0
+                last_ret = torch.where(d, ep_ret, last_ret)
+                last_len = torch.where(d, ep_len, last_len)
+                if last_suc is not None:
+                    last_suc = torch.where(d, successes[t].to(ep_ret.dtype),
+                                           last_suc)
+                alive = 1.0 - d.to(ep_ret.dtype)
+                ep_ret, ep_len = ep_ret * alive, ep_len * alive
 
-        # rebuild the env state (the vel-loop fields are untouched in rate)
-        old = ts.env_state.core
-        root = fh.unpack_root(packed_out)
-        core = old._replace(
-            root=root,
-            ctrl=old.ctrl._replace(rate_int=packed_out[13:16].T,
-                                   prev_rate=packed_out[16:19].T),
-            progress=packed_out[19].to(torch.int32),
-            reset_buf=packed_out[20] > 0.5,
-            pre_actions=packed_out[21:25].T,
-            rotors=(packed_out[25:29].T if old.rotors is not None else None))
-        env_state = self._unpack_env(ts.env_state, packed_out, core)
+            # rebuild the env state (the vel-loop fields are untouched in
+            # rate)
+            old = ts.env_state.core
+            root = fh.unpack_root(packed_out)
+            core = old._replace(
+                root=root,
+                ctrl=old.ctrl._replace(rate_int=packed_out[13:16].T,
+                                       prev_rate=packed_out[16:19].T),
+                progress=packed_out[19].to(torch.int32),
+                reset_buf=packed_out[20] > 0.5,
+                pre_actions=packed_out[21:25].T,
+                rotors=(packed_out[25:29].T if old.rotors is not None
+                        else None))
+            env_state = self._unpack_env(ts.env_state, packed_out, core)
 
         # bootstrap value from the post-rollout observation (GAE zeroes it
         # for done envs, so the post-reset state is never consumed)

@@ -39,6 +39,7 @@ from airgym_tpu_torch.models import actor_critic as ac
 from airgym_tpu_torch.parallel import dist as pdist
 from airgym_tpu_torch.rl import losses
 from airgym_tpu_torch.rl import moving_stats as mstats
+from airgym_tpu_torch.rl import profiling
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -592,52 +593,67 @@ class PPO:
         for _ in range(cfg.mini_epochs):
             rows = []
             for k in range(nmb):
-                grads = row = None
-                written = []
-                for r in ([self.rank] if self.group is not None
-                          else range(self.shares)):
-                    start, length = self._share(k, mb_size, r)
-                    sl = slice(start, start + length)
-                    mb = {key: val[sl] for key, val in dataset.items()}
-                    if isinstance(obs, dict):
-                        mob = {key: val[sl] for key, val in obs.items()}
-                        if frames is not None:
-                            mob["image_unique"], mob["feat_index"] = \
-                                self.unique_window(frames, frame_idx, k,
-                                                   mb_size, r)
-                        elif scan_img is not None:
-                            mob["image"] = self._mb_from_scan_layout(
-                                scan_img, k, mb_size, r)
-                    else:
-                        mob = obs[sl]
-                    mb["obs"], mb["mus"], mb["sigmas"] = \
-                        mob, mus[sl], sigmas[sl]
-                    loss, aux = self._loss_fn(model, rms, ts.value_rms, mb)
-                    if self.shares > 1:
-                        loss = loss / self.shares
-                    g = torch.autograd.grad(loss, params, allow_unused=True)
-                    g = [torch.zeros_like(p) if gi is None else gi
-                         for p, gi in zip(params, g)]
-                    rw = torch.stack([loss.detach()] + [
-                        aux[key] / self.shares for key in METRICS[1:]])
-                    if grads is None:
-                        grads, row = g, rw
-                    else:
-                        grads = [a + b for a, b in zip(grads, g)]
-                        row = row + rw
-                    written.append((sl, aux.pop("mu"), aux.pop("sigma")))
-                if self.group is not None:
-                    grads, row = self._all_reduce(grads, row)
-                with torch.no_grad():
-                    if cfg.truncate_grads:
-                        gnorm = torch.linalg.vector_norm(
-                            torch.stack(torch._foreach_norm(grads)))
-                        scale = torch.clamp_max(
-                            cfg.grad_norm / torch.clamp_min(gnorm, 1e-6), 1.0)
-                        torch._foreach_mul_(grads, scale)
-                    adam_step(params, grads, m, v, count, lr)
-                    for sl, mu, sigma in written:
-                        mus[sl], sigmas[sl] = mu, sigma
+                # one Adam step: ``loss`` (the slices, the image window,
+                # the loss), ``backward`` (the gradients, the zero fill,
+                # the metrics row), ``adam`` (the all-reduce, the clip,
+                # the step, the mu / sigma write-back)
+                with profiling.span("minibatch"):
+                    grads = row = None
+                    written = []
+                    for r in ([self.rank] if self.group is not None
+                              else range(self.shares)):
+                        with profiling.span("loss"):
+                            start, length = self._share(k, mb_size, r)
+                            sl = slice(start, start + length)
+                            mb = {key: val[sl]
+                                  for key, val in dataset.items()}
+                            if isinstance(obs, dict):
+                                mob = {key: val[sl]
+                                       for key, val in obs.items()}
+                                if frames is not None:
+                                    mob["image_unique"], mob["feat_index"] \
+                                        = self.unique_window(
+                                            frames, frame_idx, k, mb_size, r)
+                                elif scan_img is not None:
+                                    mob["image"] = self._mb_from_scan_layout(
+                                        scan_img, k, mb_size, r)
+                            else:
+                                mob = obs[sl]
+                            mb["obs"], mb["mus"], mb["sigmas"] = \
+                                mob, mus[sl], sigmas[sl]
+                            loss, aux = self._loss_fn(model, rms,
+                                                      ts.value_rms, mb)
+                            if self.shares > 1:
+                                loss = loss / self.shares
+                        with profiling.span("backward"):
+                            g = torch.autograd.grad(loss, params,
+                                                    allow_unused=True)
+                            g = [torch.zeros_like(p) if gi is None else gi
+                                 for p, gi in zip(params, g)]
+                            rw = torch.stack([loss.detach()] + [
+                                aux[key] / self.shares
+                                for key in METRICS[1:]])
+                            if grads is None:
+                                grads, row = g, rw
+                            else:
+                                grads = [a + b for a, b in zip(grads, g)]
+                                row = row + rw
+                            written.append((sl, aux.pop("mu"),
+                                            aux.pop("sigma")))
+                    with profiling.span("adam"):
+                        if self.group is not None:
+                            grads, row = self._all_reduce(grads, row)
+                        with torch.no_grad():
+                            if cfg.truncate_grads:
+                                gnorm = torch.linalg.vector_norm(
+                                    torch.stack(torch._foreach_norm(grads)))
+                                scale = torch.clamp_max(
+                                    cfg.grad_norm
+                                    / torch.clamp_min(gnorm, 1e-6), 1.0)
+                                torch._foreach_mul_(grads, scale)
+                            adam_step(params, grads, m, v, count, lr)
+                            for sl, mu, sigma in written:
+                                mus[sl], sigmas[sl] = mu, sigma
                 rows.append(row)
             means = torch.stack(rows).mean(0)
             if cfg.lr_schedule == "adaptive":
@@ -712,11 +728,17 @@ class PPO:
     def train_epoch(self, ts: TrainState, seed: Optional[int] = None):
         """Rollout + GAE + dataset + update. ``seed`` fixes the fused
         rollout kernel's int32 seed (tests use it to replay the JAX
-        side's)."""
+        side's). Spans (rl/profiling.py): ``epoch`` (id ``ts.epoch``)
+        over ``rollout``, ``gae``, ``stats``, ``dataset``, ``update``."""
         if self._minibatch_error:
             raise ValueError(self._minibatch_error)
+        with profiling.span("epoch", ts.epoch):
+            return self._train_epoch(ts, seed)
+
+    def _train_epoch(self, ts: TrainState, seed: Optional[int]):
         cfg = self.cfg
-        ts, traj, last_value, infos = self.rollout(ts, seed=seed)
+        with profiling.span("rollout"):
+            ts, traj, last_value, infos = self.rollout(ts, seed=seed)
         episodes = (ts.last_ep_return, ts.last_ep_length, ts.last_ep_success,
                     ts.last_ep_env_success)
         if self.group is not None:
@@ -731,34 +753,38 @@ class PPO:
             traj = Rollout(**{k: dense(v) for k, v in traj._asdict().items()})
             last_value = last_value.contiguous()
         ep_return, ep_length, ep_success, ep_env_success = episodes
-        values, adv, returns = self.compute_gae(ts, traj, last_value)
+        with profiling.span("gae"):
+            values, adv, returns = self.compute_gae(ts, traj, last_value)
 
-        if cfg.normalize_input:
-            if isinstance(ts.obs_rms, dict):
-                # the per-pixel stats run over the unique frames with
-                # frame dedup (each seen cam_every steps)
-                imgs = (traj.frames if traj.frames is not None
-                        else traj.obs["image"])
-                obs_rms = {"image": ts.obs_rms["image"].update(imgs),
-                           "observation": ts.obs_rms["observation"].update(
-                               traj.prenorm)}
+        with profiling.span("stats"):
+            if cfg.normalize_input:
+                if isinstance(ts.obs_rms, dict):
+                    # the per-pixel stats run over the unique frames with
+                    # frame dedup (each seen cam_every steps)
+                    imgs = (traj.frames if traj.frames is not None
+                            else traj.obs["image"])
+                    obs_rms = {
+                        "image": ts.obs_rms["image"].update(imgs),
+                        "observation": ts.obs_rms["observation"].update(
+                            traj.prenorm)}
+                else:
+                    obs_rms = ts.obs_rms.update(traj.prenorm)
+                ts = dataclasses.replace(ts, obs_rms=obs_rms)
+            if cfg.normalize_value:
+                vr = ts.value_rms.update(values).update(returns)
+                ts = dataclasses.replace(ts, value_rms=vr)
+                values_m = vr.normalize(values)
+                returns_m = vr.normalize(returns)
             else:
-                obs_rms = ts.obs_rms.update(traj.prenorm)
-            ts = dataclasses.replace(ts, obs_rms=obs_rms)
-        if cfg.normalize_value:
-            vr = ts.value_rms.update(values).update(returns)
-            ts = dataclasses.replace(ts, value_rms=vr)
-            values_m, returns_m = vr.normalize(values), vr.normalize(returns)
-        else:
-            values_m, returns_m = values, returns
-        if cfg.normalize_rms_advantage:
-            adv_ms = mstats.update_mean_std(ts.adv_ms, adv,
-                                            decay=RMS_ADVANTAGE_DECAY)
-            ts = dataclasses.replace(ts, adv_ms=adv_ms)
-            adv = mstats.normalize(adv_ms, adv)
-        elif cfg.normalize_advantage:
-            adv = (adv - torch.mean(adv)) / (torch.std(adv, unbiased=False)
-                                             + 1e-8)
+                values_m, returns_m = values, returns
+            if cfg.normalize_rms_advantage:
+                adv_ms = mstats.update_mean_std(ts.adv_ms, adv,
+                                                decay=RMS_ADVANTAGE_DECAY)
+                ts = dataclasses.replace(ts, adv_ms=adv_ms)
+                adv = mstats.normalize(adv_ms, adv)
+            elif cfg.normalize_advantage:
+                adv = (adv - torch.mean(adv)) / (
+                    torch.std(adv, unbiased=False) + 1e-8)
 
         # [H, N, ...] -> env-major [N*H, ...]: contiguous minibatches group
         # whole trajectories like the reference's PPODataset; the images
@@ -767,19 +793,22 @@ class PPO:
             x = torch.transpose(x, 0, 1)
             return x.reshape((self.batch_size,) + x.shape[2:]).contiguous()
 
-        obs = traj.obs
-        obs = ({k: (v if k == "image" else flat(v)) for k, v in obs.items()}
-               if isinstance(obs, dict) else flat(obs))
-        dataset = {
-            "obs": obs, "actions": flat(traj.actions),
-            "neglogp": flat(traj.neglogp), "values": flat(values_m),
-            "returns": flat(returns_m), "adv": flat(adv),
-            "mus_init": flat(traj.mus), "sigmas_init": flat(traj.sigmas),
-        }
-        if traj.frames is not None:
-            dataset["frames"] = traj.frames
-            dataset["frame_idx"] = traj.frame_idx
-        ts, metrics = self.update(ts, dataset)
+        with profiling.span("dataset"):
+            obs = traj.obs
+            obs = ({k: (v if k == "image" else flat(v))
+                    for k, v in obs.items()}
+                   if isinstance(obs, dict) else flat(obs))
+            dataset = {
+                "obs": obs, "actions": flat(traj.actions),
+                "neglogp": flat(traj.neglogp), "values": flat(values_m),
+                "returns": flat(returns_m), "adv": flat(adv),
+                "mus_init": flat(traj.mus), "sigmas_init": flat(traj.sigmas),
+            }
+            if traj.frames is not None:
+                dataset["frames"] = traj.frames
+                dataset["frame_idx"] = traj.frame_idx
+        with profiling.span("update"):
+            ts, metrics = self.update(ts, dataset)
         ts = dataclasses.replace(ts, epoch=ts.epoch + 1,
                                  frame=ts.frame + self.batch_size)
         metrics = dict(metrics)

@@ -1,82 +1,90 @@
-"""Timing and trace instrumentation (counterpart of
-airgym_tpu/rl/profiling.py): the reference's three wall-clock fps
-figures, and ``torch.profiler`` in place of ``jax.profiler`` for device
-traces.
+"""Program spans on the profiler's clock.
+
+``span(name)`` marks a phase of the program (``rl/ppo.PPO.train_epoch``'s
+``epoch`` and its phases, the plain update's ``minibatch`` steps, the
+fused rollout's ``bookkeeping``, ``ops/fused_hovering.rollout_fused``).
+Between ``start()`` and ``stop()`` each span appends one ``Record`` to a
+list in memory, stamped with ``time.time_ns()``: the clock that
+``torch.profiler`` (kineto) stamps its host events with and converts the
+device's timestamps to, so a reading of a profiled stretch places the
+spans on the device timeline with no sync and no marker kernel. Tracing
+never syncs the device. While it is off, ``span()`` tests one flag and
+returns a shared null context: no clock read, no allocation, no CUDA
+call.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
-from typing import Dict, Optional
+from typing import List, Optional
+
+_NULL = contextlib.nullcontext()
+_on = False
+_records: List["Record"] = []
+_open: List[int] = []          # indices of the open spans, innermost last
+_roots = 0                     # root spans opened since start()
 
 
-class StepTimer:
-    """Accumulates the reference's performance/step_fps (env steps),
-    step_inference_fps (steps + policy) and step_inference_rl_update_fps
-    (steps + policy + update). Times are host wall-clock: a caller timing
-    CUDA work synchronizes the device inside the span."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.step_time = 0.0
-        self.play_time = 0.0
-        self.update_time = 0.0
-        self.frames = 0
-
-    @contextlib.contextmanager
-    def _span(self, field: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            setattr(self, field,
-                    getattr(self, field) + time.perf_counter() - t0)
-
-    def env_step(self):
-        return self._span("step_time")
-
-    def play(self):
-        return self._span("play_time")
-
-    def update(self):
-        return self._span("update_time")
-
-    def add_frames(self, n: int) -> None:
-        self.frames += n
-
-    def fps(self) -> Dict[str, float]:
-        eps = 1e-9
-        return {
-            "performance/step_fps": self.frames / max(self.step_time, eps),
-            "performance/step_inference_fps":
-                self.frames / max(self.play_time, eps),
-            "performance/step_inference_rl_update_fps":
-                self.frames / max(self.play_time + self.update_time, eps),
-        }
+@dataclasses.dataclass
+class Record:
+    """One span: ``parent`` is the index of the enclosing span's record
+    (-1 for a root); ``root_id`` is shared by a root and every span under
+    it (the epoch index, or the root's count since ``start()``); start
+    and end are ``time.time_ns()`` (end None while the span is open)."""
+    name: str
+    parent: int
+    root_id: int
+    start_ns: int
+    end_ns: Optional[int] = None
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]):
-    """A ``torch.profiler`` trace of the host and, where a GPU is
-    present, the device, written to ``log_dir`` for TensorBoard's profile
-    plugin (a Chrome trace); a no-op when ``log_dir`` is None."""
-    if not log_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
+class _Span:
+    __slots__ = ("name", "root_id", "records", "index")
+
+    def __init__(self, name: str, root_id: Optional[int]):
+        self.name, self.root_id = name, root_id
+
+    def __enter__(self):
+        global _roots
+        if _open:
+            parent = _open[-1]
+            root_id = _records[parent].root_id
+        else:
+            parent = -1
+            root_id = _roots if self.root_id is None else self.root_id
+            _roots += 1
+        self.records, self.index = _records, len(_records)
+        _records.append(Record(self.name, parent, root_id, time.time_ns()))
+        _open.append(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        self.records[self.index].end_ns = time.time_ns()
+        # a span opened before the last start() closes its own record only
+        if _open and _open[-1] == self.index and self.records is _records:
+            _open.pop()
+        return False
 
 
-def annotate(name: str):
-    """A named span on the trace's timeline."""
-    import torch
-    return torch.profiler.record_function(name)
+def span(name: str, root_id: Optional[int] = None):
+    """A context manager marking the phase ``name``; ``root_id`` names a
+    root span's id (ignored under another span, whose id it shares)."""
+    if not _on:
+        return _NULL
+    return _Span(name, root_id)
+
+
+def start() -> None:
+    """Clear the records and turn tracing on."""
+    global _on, _records, _open, _roots
+    _records, _open, _roots = [], [], 0
+    _on = True
+
+
+def stop() -> List[Record]:
+    """Turn tracing off and return the records since ``start()``, in the
+    order the spans opened (none after the first ``stop()``)."""
+    global _on, _records, _open
+    out, _records, _open, _on = _records, [], [], False
+    return out

@@ -1,6 +1,6 @@
 """The port's play / eval path and the run's records against the JAX
 package: the ``Player``, the runner's play dispatch and training dumps,
-the CLI, the metrics writer and the timers.
+the CLI and the metrics writer.
 
 Player parity: Hovering at 64 envs, obs noise off, the plain PPO on both
 sides, the JAX params carried in with ``checkpoint.from_jax``, both
@@ -13,7 +13,6 @@ import json
 import math
 import os
 import pathlib
-import time
 
 import jax
 import numpy as np
@@ -30,7 +29,6 @@ from airgym_tpu_torch.envs.hovering import HoveringState
 from airgym_tpu_torch.rl import checkpoint as tckpt
 from airgym_tpu_torch.rl import metrics as tmetrics
 from airgym_tpu_torch.rl import ppo as tppo
-from airgym_tpu_torch.rl import profiling as tprof
 from airgym_tpu_torch.rl import runner as trunner
 from airgym_tpu_torch.rl.runner import Player
 from airgym_tpu_torch.utils.episode_viz import _euler_from_quat, dump_episode
@@ -313,29 +311,3 @@ def test_interval_writer_throttles_and_episode_terms(tmp_path):
     assert tmetrics.episode_terms(
         {"pos_reward": torch.tensor([1.0, 3.0])}) == {
         "Episode/pos_reward": 2.0}
-
-
-def test_step_timer_and_traces(tmp_path):
-    t = tprof.StepTimer()
-    with t.play():
-        with t.env_step():
-            time.sleep(0.01)
-    with t.update():
-        time.sleep(0.01)
-    t.add_frames(1000)
-    fps = t.fps()
-    assert set(fps) == {"performance/step_fps",
-                        "performance/step_inference_fps",
-                        "performance/step_inference_rl_update_fps"}
-    assert fps["performance/step_fps"] >= \
-        fps["performance/step_inference_fps"] > \
-        fps["performance/step_inference_rl_update_fps"] > 0
-    t.reset()
-    assert t.frames == 0 and t.play_time == 0.0
-    with tprof.device_trace(None):
-        pass
-    with tprof.device_trace(str(tmp_path / "trace")):
-        with tprof.annotate("span"):
-            torch.ones(4).sum()
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path / "trace"))
-
