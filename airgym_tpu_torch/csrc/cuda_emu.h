@@ -1,12 +1,14 @@
 // Test builds only, never part of a card build: the subset of CUDA that
 // fused_cnn.cu (with mma_bf16.cuh), fused_update.cu, fused_rollout.cu
 // and fused_hovering.cu (with quad_step.cuh and common.cuh),
-// render_process.cu and render_depth.cu (with raycast.cuh) use, emulated
+// render_process.cu and render_depth.cu (with raycast.cuh) and
+// epoch_prep.cu use, emulated
 // on the CPU, so the kernel sources themselves can be compiled with g++
 // and held against their plain versions where there is no card
 // (tests/test_torch_fused_cnn.py, tests/test_torch_fused_update.py,
 // tests/test_torch_fused_rollout.py, tests/test_torch_fused_hovering.py,
-// tests/test_torch_render.py, tests/test_torch_render_depth.py):
+// tests/test_torch_render.py, tests/test_torch_render_depth.py,
+// tests/test_torch_epoch_prep.py):
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -ffp-contract=off -include cuda_emu.h
 //       -x c++ fused_cnn.cu -o libfused_cnn_emu.so -lpthread
@@ -64,6 +66,7 @@ struct EmuWarp {
   std::barrier<> bar{32};
   uint32_t a[32][4], b[32][2];
   float x[32];
+  double xd[32];
   uint32_t vote[32];
 };
 inline thread_local EmuWarp* emu_warp = nullptr;
@@ -108,6 +111,16 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   w.x[l] = v;
   w.bar.arrive_and_wait();
   const float r = w.x[l ^ m];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline double __shfl_xor_sync(unsigned, double v, int m) {
+  EmuWarp& w = *emu_warp;
+  const int l = threadIdx.x & 31;
+  w.xd[l] = v;
+  w.bar.arrive_and_wait();
+  const double r = w.xd[l ^ m];
   w.bar.arrive_and_wait();
   return r;
 }

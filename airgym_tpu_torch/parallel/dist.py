@@ -189,13 +189,13 @@ def free_port() -> int:
 def _kernel_launches() -> Dict[str, int]:
     """{kernel/variant: launches} of every kernel in this process."""
     from airgym_tpu_torch.experiments import fused_cnn
-    from airgym_tpu_torch.ops import fused_hovering, fused_rollout
-    from airgym_tpu_torch.ops import fused_update
+    from airgym_tpu_torch.ops import epoch_prep, fused_hovering
+    from airgym_tpu_torch.ops import fused_rollout, fused_update
     from airgym_tpu_torch.render import raycast
     return {f"{k.name}/{v}": n
             for k in (fused_rollout.KERNEL, fused_update.KERNEL,
-                      fused_hovering.KERNEL, raycast.KERNEL,
-                      raycast.DEPTH_KERNEL, fused_cnn.KERNEL)
+                      epoch_prep.KERNEL, fused_hovering.KERNEL,
+                      raycast.KERNEL, raycast.DEPTH_KERNEL, fused_cnn.KERNEL)
             for v, n in k.launches.items() if n}
 
 

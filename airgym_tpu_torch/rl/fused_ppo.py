@@ -2,10 +2,12 @@
 (counterpart of airgym_tpu/rl/fused_ppo.py).
 
 ``FusedHoveringPPO`` runs the whole rollout through
-``ops/fused_rollout.rollout_fused_policy`` (csrc/fused_rollout.cu) and the
-whole update phase through ``ops/fused_update.fused_update``
-(csrc/fused_update.cu); GAE, the running stats and the dataset stay plain
-PyTorch (rl/ppo.py). On CPU tensors both ops run their plain versions.
+``ops/fused_rollout.rollout_fused_policy`` (csrc/fused_rollout.cu), GAE,
+the running stats and the dataset through ``ops/epoch_prep.epoch_prep``
+(csrc/epoch_prep.cu) and the whole update phase through
+``ops/fused_update.fused_update`` (csrc/fused_update.cu). On CPU tensors
+the rollout and update ops run their plain versions, and GAE, the stats
+and the dataset stay rl/ppo.py's PyTorch (see ``_prep_engages``).
 ``FusedBalloonPPO`` and ``FusedTrackingPPO`` change only the task hooks:
 how the env state is packed and unpacked, the bootstrap observation and
 the per-step success flags.
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from airgym_tpu_torch.ops import epoch_prep as ep
 from airgym_tpu_torch.ops import fused_hovering as fh
 from airgym_tpu_torch.ops import fused_rollout as fr
 from airgym_tpu_torch.ops import fused_update as fu
@@ -62,6 +65,9 @@ class FusedHoveringPPO(ppo_mod.PPO):
                 f"plain rl/ppo.PPO (ROADMAP.md queue C, activations in the "
                 f"fused trainer), as the runner picks it")
         self._motor_alpha = qd.motor_alpha(task.params)
+        # the last rollout's record [H, OBS + 13, N], of which its Rollout
+        # fields are views: _prepare's kernels read it in place
+        self._record: Optional[torch.Tensor] = None
         super().__init__(task, cfg, network_kw=network_kw, group=group,
                          shares=shares)
 
@@ -116,6 +122,7 @@ class FusedHoveringPPO(ppo_mod.PPO):
             neglogp=rec[:, k + 4], values=rec[:, k + 5], mus=mus,
             sigmas=sigma.expand(mus.shape), rewards=rewards, dones=dones,
             timeouts=rec[:, k + 12] > 0.5)
+        self._record = rec
 
         successes = self._fused_success(obs, rewards, dones)
         if (successes is None) != (ts.last_ep_success is None):
@@ -168,21 +175,71 @@ class FusedHoveringPPO(ppo_mod.PPO):
             last_ep_length=last_len, last_ep_success=last_suc)
         return ts, traj, last_value[:, 0], {"reward": torch.mean(rewards)}
 
-    def _can_fuse_update(self, dataset) -> bool:
+    def _can_fuse_update(self) -> bool:
         # the reference's rules minus its TPU VMEM cap on the batch size
         # (the net's shape is checked at construction); a multi-rank run
         # and its one-process witness take the plain update
         cfg = self.cfg
         return (self.world == 1 and not self.witness
-                and not isinstance(dataset["obs"], dict)
+                and not self.obs_is_dict
                 and not cfg.clip_value
                 and not cfg.use_smooth_clamp
                 and cfg.lr_schedule in ("adaptive", "fixed", "linear")
                 and cfg.normalize_input
                 and self.batch_size % self.num_minibatches == 0)
 
+    def _prep_supported(self) -> bool:
+        """GAE, the stats and the dataset can run as csrc/epoch_prep.cu:
+        where the update kernel runs, with every normalisation the kernels
+        apply (the bootstrap on time-outs is the kernel's flag)."""
+        cfg = self.cfg
+        return (self._can_fuse_update() and cfg.normalize_value
+                and cfg.normalize_advantage
+                and not cfg.normalize_rms_advantage)
+
+    def _prep_engages(self, traj) -> bool:
+        """The kernels run on the card. On the CPU, GAE, the stats and the
+        dataset stay rl/ppo.py's PyTorch, which takes the advantages' mean
+        and std in float32 as the benchmark's frozen reference
+        (portbench/reference) does, bit for bit in the CPU tests; there
+        are no launches to save there."""
+        return traj.values.is_cuda and self._prep_supported()
+
+    def _prepare(self, ts: ppo_mod.TrainState, traj, last_value):
+        if not self._prep_engages(traj):
+            return super()._prepare(ts, traj, last_value)
+        rec, self._record = self._record, None
+        if rec is None:
+            raise RuntimeError(
+                f"{type(self).__name__}: no rollout record to prepare the "
+                f"epoch from; the kernels read the record of the rollout "
+                f"just run")
+        cfg = self.cfg
+        p = ep.epoch_prep(rec, last_value, ts.obs_rms, ts.value_rms,
+                          gamma=cfg.gamma, tau=cfg.tau,
+                          reward_scale=cfg.reward_shaper_scale,
+                          value_bootstrap=cfg.value_bootstrap)
+        with profiling.span("dataset"):
+            ts = dataclasses.replace(ts, obs_rms=p.obs_rms,
+                                     value_rms=p.value_rms)
+            dataset = {"obs": p.obs_n, "actions": p.actions,
+                       "neglogp": p.neglogp, "adv": p.adv_n,
+                       "returns": p.returns_n, "mus_init": p.mus,
+                       "sigmas_init": traj.sigmas[0, 0].expand(
+                           self.batch_size, -1)}
+        return ts, p.values, p.returns, dataset
+
+    def _dataset(self, ts, traj, values_m, returns_m, adv):
+        dataset = super()._dataset(ts, traj, values_m, returns_m, adv)
+        if self._can_fuse_update():
+            # the update kernel takes the normalised observations
+            dataset["obs"] = ts.obs_rms.normalize(dataset["obs"])
+        return dataset
+
     def update(self, ts: ppo_mod.TrainState, dataset):
-        if not self._can_fuse_update(dataset):
+        """The update kernel on the dataset of ``_prepare``, whose "obs"
+        are normalised where it runs; else the plain update."""
+        if not self._can_fuse_update():
             return super().update(ts, dataset)
         cfg = self.cfg
         if cfg.lr_schedule == "linear":
@@ -191,7 +248,6 @@ class FusedHoveringPPO(ppo_mod.PPO):
                 max(cfg.min_lr, cfg.learning_rate * mul), dtype=torch.float32,
                 device=self.device))
 
-        obs_n = ts.obs_rms.normalize(dataset["obs"])
         params = dict(ts.model.named_parameters())
         kcfg = dict(e_clip=cfg.e_clip, critic_coef=cfg.critic_coef,
                     bounds_coef=cfg.bounds_loss_coef,
@@ -202,8 +258,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
                     kl_threshold=cfg.kl_threshold,
                     min_lr=cfg.min_lr, max_lr=cfg.max_lr)
         w2, m2, v2, lr2, t2, metrics = fu.fused_update(
-            obs_n, dataset["actions"], dataset["adv"], dataset["returns"],
-            dataset["neglogp"], dataset["mus_init"],
+            dataset["obs"], dataset["actions"], dataset["adv"],
+            dataset["returns"], dataset["neglogp"], dataset["mus_init"],
             dataset["sigmas_init"][0].reshape(-1, 1).contiguous(),
             fu.pack_update(params), fu.pack_update(ts.adam["m"]),
             fu.pack_update(ts.adam["v"]), ts.lr.reshape(1),

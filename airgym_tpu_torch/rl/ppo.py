@@ -725,34 +725,11 @@ class PPO:
             next_value = values[t]
         return values, adv, adv + values
 
-    def train_epoch(self, ts: TrainState, seed: Optional[int] = None):
-        """Rollout + GAE + dataset + update. ``seed`` fixes the fused
-        rollout kernel's int32 seed (tests use it to replay the JAX
-        side's). Spans (rl/profiling.py): ``epoch`` (id ``ts.epoch``)
-        over ``rollout``, ``gae``, ``stats``, ``dataset``, ``update``."""
-        if self._minibatch_error:
-            raise ValueError(self._minibatch_error)
-        with profiling.span("epoch", ts.epoch):
-            return self._train_epoch(ts, seed)
-
-    def _train_epoch(self, ts: TrainState, seed: Optional[int]):
+    def _prepare(self, ts: TrainState, traj: Rollout, last_value):
+        """GAE, the running stats and the dataset (spans ``gae``,
+        ``stats``, ``dataset``) -> (ts with the new stats, values and
+        returns [H, N], the dataset ``update`` takes)."""
         cfg = self.cfg
-        with profiling.span("rollout"):
-            ts, traj, last_value, infos = self.rollout(ts, seed=seed)
-        episodes = (ts.last_ep_return, ts.last_ep_length, ts.last_ep_success,
-                    ts.last_ep_env_success)
-        if self.group is not None:
-            traj, last_value, infos, episodes = self._gather(
-                traj, last_value, infos, episodes)
-        elif self.witness:
-            # the ranks' gathered batch is contiguous, and a reduction's
-            # order may follow the layout
-            dense = lambda v: (None if v is None else
-                               {k: dense(x) for k, x in v.items()}
-                               if isinstance(v, dict) else v.contiguous())
-            traj = Rollout(**{k: dense(v) for k, v in traj._asdict().items()})
-            last_value = last_value.contiguous()
-        ep_return, ep_length, ep_success, ep_env_success = episodes
         with profiling.span("gae"):
             values, adv, returns = self.compute_gae(ts, traj, last_value)
 
@@ -786,27 +763,61 @@ class PPO:
                 adv = (adv - torch.mean(adv)) / (
                     torch.std(adv, unbiased=False) + 1e-8)
 
-        # [H, N, ...] -> env-major [N*H, ...]: contiguous minibatches group
-        # whole trajectories like the reference's PPODataset; the images
-        # stay in rollout layout (see update)
+        with profiling.span("dataset"):
+            dataset = self._dataset(ts, traj, values_m, returns_m, adv)
+        return ts, values, returns, dataset
+
+    def _dataset(self, ts: TrainState, traj: Rollout, values_m, returns_m,
+                 adv) -> Dict[str, Any]:
+        """[H, N, ...] -> env-major [N*H, ...]: contiguous minibatches
+        group whole trajectories like the reference's PPODataset; the
+        images stay in rollout layout (see update)."""
         def flat(x):
             x = torch.transpose(x, 0, 1)
             return x.reshape((self.batch_size,) + x.shape[2:]).contiguous()
 
-        with profiling.span("dataset"):
-            obs = traj.obs
-            obs = ({k: (v if k == "image" else flat(v))
-                    for k, v in obs.items()}
-                   if isinstance(obs, dict) else flat(obs))
-            dataset = {
-                "obs": obs, "actions": flat(traj.actions),
-                "neglogp": flat(traj.neglogp), "values": flat(values_m),
-                "returns": flat(returns_m), "adv": flat(adv),
-                "mus_init": flat(traj.mus), "sigmas_init": flat(traj.sigmas),
-            }
-            if traj.frames is not None:
-                dataset["frames"] = traj.frames
-                dataset["frame_idx"] = traj.frame_idx
+        obs = traj.obs
+        obs = ({k: (v if k == "image" else flat(v)) for k, v in obs.items()}
+               if isinstance(obs, dict) else flat(obs))
+        dataset = {
+            "obs": obs, "actions": flat(traj.actions),
+            "neglogp": flat(traj.neglogp), "values": flat(values_m),
+            "returns": flat(returns_m), "adv": flat(adv),
+            "mus_init": flat(traj.mus), "sigmas_init": flat(traj.sigmas),
+        }
+        if traj.frames is not None:
+            dataset["frames"] = traj.frames
+            dataset["frame_idx"] = traj.frame_idx
+        return dataset
+
+    def train_epoch(self, ts: TrainState, seed: Optional[int] = None):
+        """Rollout + GAE + dataset + update. ``seed`` fixes the fused
+        rollout kernel's int32 seed (tests use it to replay the JAX
+        side's). Spans (rl/profiling.py): ``epoch`` (id ``ts.epoch``)
+        over ``rollout``, ``gae``, ``stats``, ``dataset``, ``update``."""
+        if self._minibatch_error:
+            raise ValueError(self._minibatch_error)
+        with profiling.span("epoch", ts.epoch):
+            return self._train_epoch(ts, seed)
+
+    def _train_epoch(self, ts: TrainState, seed: Optional[int]):
+        with profiling.span("rollout"):
+            ts, traj, last_value, infos = self.rollout(ts, seed=seed)
+        episodes = (ts.last_ep_return, ts.last_ep_length, ts.last_ep_success,
+                    ts.last_ep_env_success)
+        if self.group is not None:
+            traj, last_value, infos, episodes = self._gather(
+                traj, last_value, infos, episodes)
+        elif self.witness:
+            # the ranks' gathered batch is contiguous, and a reduction's
+            # order may follow the layout
+            dense = lambda v: (None if v is None else
+                               {k: dense(x) for k, x in v.items()}
+                               if isinstance(v, dict) else v.contiguous())
+            traj = Rollout(**{k: dense(v) for k, v in traj._asdict().items()})
+            last_value = last_value.contiguous()
+        ep_return, ep_length, ep_success, ep_env_success = episodes
+        ts, values, returns, dataset = self._prepare(ts, traj, last_value)
         with profiling.span("update"):
             ts, metrics = self.update(ts, dataset)
         ts = dataclasses.replace(ts, epoch=ts.epoch + 1,

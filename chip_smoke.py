@@ -19,21 +19,27 @@ Phases, each of which exits non-zero on failure:
   4. hold the update kernel (18 features) against its plain version at
      the main-path shape (B = 98,304, minibatch 2048, 48 minibatches,
      5 mini-epochs: 240 Adam steps in one cooperative launch), two kernel
-     runs on the same inputs bitwise equal;
+     runs on the same inputs bitwise equal; then the prep kernels
+     (csrc/epoch_prep.cu: GAE, the running stats, the dataset) at 4096
+     envs x 24 steps with dones and time-outs, at 18 and 48 features,
+     against their plain twin on the same card tensors, bitwise, two calls
+     bitwise equal, three launches a call;
   5. train the default Hovering PPO (configs/ppo_hovering.yaml, 4096
      envs) for a few epochs through the runner, with the kernels' launch
-     counters set to 0 just before and read just after (1 rollout and 1
-     update launch per epoch; the Adam count 240 per epoch), then save and
-     reload the checkpoint;
+     counters set to 0 just before and read just after (1 rollout, 1 gae,
+     1 stats, 1 dataset and 1 update launch per epoch; the Adam count 240
+     per epoch), then save and reload the checkpoint;
   6. time each kernel and its plain version with CUDA events, the update
      kernel's persistent grid G printed beside its time and bound, and the
      update once more with G capped at half; the rollout's launch shape
      (envs and threads per block, blocks, resident blocks per SM) beside
      its time, and the split of its blocks' cycles between the env phases
      and the MLP (a second build of the source with
-     -DAIRGYM_ROLLOUT_CLOCKS);
+     -DAIRGYM_ROLLOUT_CLOCKS); each prep kernel's device time (the
+     profiler, at 18 and 48 features) beside its plain phase's (CUDA
+     events) and its byte bound, and the chain's whole time;
   7. profile one steady epoch (device busy share, device time by kernel,
-     exactly one update kernel);
+     exactly one update kernel and one of each prep kernel);
   8. hold the Balloon (4096 x 32) and Tracking (4096 x 24) rollout
      kernels against their plain versions, with resets, time-outs and
      balloon hits in the window, two kernel runs bitwise equal, the update
@@ -48,9 +54,10 @@ Phases, each of which exits non-zero on failure:
      equal (kernels/hovering_ab.py's two traffics);
  10. train Balloon (configs/ppo_balloon.yaml at 4096 envs) and Tracking
      (configs/ppo_tracking.yaml) for 3 epochs each through the runner,
-     counters checked (1 rollout + 1 update launch per epoch; the Adam
-     count 320 / 240 per epoch), save and reload each, and profile one
-     epoch each (exactly one update kernel);
+     counters checked (1 rollout, 1 of each prep kernel and 1 update
+     launch per epoch; the Adam count 320 / 240 per epoch), save and
+     reload each, and profile one epoch each (exactly one update kernel
+     and one of each prep kernel);
  11. time the Balloon / Tracking kernels and the 48-feature update (with
      its G) and their plain versions, the Balloon / Tracking rollouts with
      their launch shapes and cycle split as in phase 6; the env-only
@@ -109,7 +116,8 @@ Phases, each of which exits non-zero on failure:
      and the cuDNN stack (impl='auto') at the same
      shapes as a yardstick;
  23. train Hovering to its YAML's end through the CLI (4096 envs, all 200
-     epochs, 50 logged points; 1 rollout + 1 update launch per epoch),
+     epochs, 50 logged points; 1 rollout, 1 of each prep kernel and 1
+     update launch per epoch),
      print its reward at the 1st, 10th, 25th and last logged points beside
      the reference's curve at the same frames
      (benchmarks/convergence/hovering.json), check the run's
@@ -569,6 +577,124 @@ def update_vs_plain(fu, args, kw, tag):
     return update_err
 
 
+def prep_case(dev, obs, n, h, seed):
+    """A record [h, obs + 13, n] as the rollout kernel writes it (about 4%
+    of the steps end an episode, half of those by time-out), a bootstrap
+    value and used running stats."""
+    from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    uni = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    rec = rnd(h, obs + 13, n)
+    rec[:, obs + 10] = 10.0 * uni(h, n) - 2.0
+    done = uni(h, n) < 0.04
+    rec[:, obs + 11] = done.float()
+    rec[:, obs + 12] = (done & (uni(h, n) < 0.5)).float()
+    obs_rms = RunningMeanStd.create((obs,), dev).update(
+        2.0 * rnd(4096, obs) + 0.5)
+    value_rms = RunningMeanStd.create((), dev).update(3.0 * rnd(4096) - 1.0)
+    return rec, rnd(n), obs_rms, value_rms
+
+
+# the outputs of each prep kernel (ops/epoch_prep.Prep's fields)
+PREP_OUT = {"gae": ("values", "adv", "returns"),
+            "stats": ("obs_rms", "value_rms"),
+            "dataset": ("obs_n", "actions", "neglogp", "mus", "adv_n",
+                        "returns_n")}
+
+
+def prep_vs_plain(ep, case, kw, tag):
+    """The three prep kernels against their plain twin on the same card
+    tensors: bitwise, two calls bitwise equal, one launch of each a call.
+    Returns {phase: max|err|}."""
+    before = {ph: ep.KERNEL.launches.get(ph, 0) for ph in ep.PHASES}
+    k1, k2 = ep.epoch_prep(*case, **kw), ep.epoch_prep(*case, **kw)
+    p = ep.epoch_prep_plain(*case, **kw)
+    torch.cuda.synchronize()
+    got = {ph: ep.KERNEL.launches[ph] - before[ph] for ph in ep.PHASES}
+    check(all(n == 2 for n in got.values()),
+          f"prep {tag}: launches in two calls {got}, expected 2 of each")
+    tensors = lambda x: (list(x) if isinstance(x, tuple) else [x])
+    errs = {}
+    for phase, fields in PREP_OUT.items():
+        err = 0.0
+        for f in fields:
+            for w, a, b in zip(*(tensors(getattr(x, f)) for x in (p, k1, k2))):
+                check(w.shape == a.shape and w.dtype == a.dtype,
+                      f"prep {tag} {f}: {tuple(a.shape)} {a.dtype}, plain "
+                      f"{tuple(w.shape)} {w.dtype}")
+                check(torch.equal(a, b), f"prep {tag} {f}: two kernel "
+                                         f"calls on the same inputs differ")
+                err = max(err, float((a.double() - w.double()).abs().max()))
+                check(torch.equal(a, w), f"prep {tag} {phase} {f}: kernel "
+                                         f"vs plain twin max|err| {err:.3e}, "
+                                         f"want bitwise equal")
+        errs[phase] = err
+    rec = case[0]
+    print(f"[prep {tag}] {rec.shape[2]} envs x {rec.shape[0]} steps, "
+          f"{int(rec[:, -2].sum())} dones ({int(rec[:, -1].sum())} "
+          f"time-outs): gae, stats and dataset bitwise the plain twin; two "
+          f"calls bitwise equal", flush=True)
+    return errs
+
+
+def prep_bound(obs, n, h):
+    """{phase: (bound ms, 'bytes')}: the bytes each prep kernel has to move
+    at least. gae reads the record's K observation rows and the value,
+    reward, done and time-out rows and the bootstrap value, writes values,
+    adv and returns and the float64 partials; stats reads the partials;
+    dataset reads the K + 9 rows it copies and adv and returns, and writes
+    K + 11 floats a row. Their float64 and float32 operations take less
+    than a tenth of that time at the card's peaks."""
+    hn, part = h * n, 8.0 * 3 * (n // 32) * (obs + 3)
+    nbytes = {"gae": 4.0 * ((obs + 4) * hn + n + 3 * hn) + part,
+              "stats": part,
+              "dataset": 4.0 * 2 * (obs + 11) * hn}
+    return {ph: bound_ms(0.0, b) for ph, b in nbytes.items()}
+
+
+def prep_times(ep, case, kw, times, tag):
+    """Each prep kernel's device time (the profiler over TIMING_REPS calls)
+    beside its plain phase's (CUDA events) and its bound, into
+    ``times[f"prep_{phase}[{tag}]"]``; and the chain's whole time."""
+    from torch.profiler import ProfilerActivity, profile
+    rec, last_value, obs_rms, value_rms = case
+    for _ in range(3):
+        ep.epoch_prep(*case, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMING_REPS):
+            ep.epoch_prep(*case, **kw)
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        for ph in ep.PHASES:
+            if f"epoch_prep_{ph}_kernel" in e.key and e.count:
+                dev_ms[ph] = e.device_time_total / e.count / 1e3
+    check(sorted(dev_ms) == sorted(ep.PHASES),
+          f"prep {tag}: the profiler saw {sorted(dev_ms)} of the kernels")
+    values, adv, ret, part = ep.plain_gae(rec, last_value, value_rms, **kw)
+    _, _, consts = ep.plain_stats(part, obs_rms, value_rms)
+    plain = {"gae": lambda: ep.plain_gae(rec, last_value, value_rms, **kw),
+             "stats": lambda: ep.plain_stats(part, obs_rms, value_rms),
+             "dataset": lambda: ep.plain_dataset(rec, adv, ret, consts)}
+    bounds = prep_bound(rec.shape[1] - 13, rec.shape[2], rec.shape[0])
+    for ph in ep.PHASES:
+        times[f"prep_{ph}[{tag}]"] = (dev_ms[ph], cuda_time_ms(
+            plain[ph], PLAIN_REPS), *bounds[ph])
+    chain = cuda_time_ms(lambda: ep.epoch_prep(*case, **kw))
+    plain_chain = cuda_time_ms(lambda: ep.epoch_prep_plain(*case, **kw),
+                               PLAIN_REPS)
+    print(f"[time] prep {tag}: " + ", ".join(
+        f"{ph} {times[f'prep_{ph}[{tag}]'][0] * 1e3:.1f} us (plain "
+        f"{times[f'prep_{ph}[{tag}]'][1]:.3f} ms, bound "
+        f"{times[f'prep_{ph}[{tag}]'][2] * 1e3:.2f} us by bytes)"
+        for ph in ep.PHASES) + f"; the chain {chain * 1e3:.1f} us between "
+        f"CUDA events with its host work (plain {plain_chain:.3f} ms), "
+        f"bound {sum(bounds[ph][0] for ph in ep.PHASES) * 1e3:.2f} us",
+        flush=True)
+
+
 def train_and_reload(runner_mod, ckpt, yaml_cfg, task, epochs, run_root,
                      probe_gen, kernels, num_envs=None, network_kw=None):
     """Train through the runner, its trainer built with ``network_kw``
@@ -1005,6 +1131,12 @@ def launched(kernels):
             for v, n in k.launches.items() if n}
 
 
+def prep_launched(epochs):
+    """launched()'s entries of the prep kernels in ``epochs`` fused
+    epochs: one launch of each an epoch."""
+    return {f"epoch_prep/{ph}": epochs for ph in ("gae", "stats", "dataset")}
+
+
 def timed_cli(cli, argv):
     """cli.run_cli(argv) and its seconds up to a device sync."""
     t0 = time.time()
@@ -1037,7 +1169,8 @@ def train_hovering_to_the_end(cli, fr, fu, kernels, run_root):
         print(f"[train hovering 200] {epochs} epochs in {train_s:.2f} s "
               f"({ts.frame} frames); launches {got}", flush=True)
         check(got == {"fused_rollout/hovering": epochs,
-                      "fused_update/obs18": epochs} and epochs == 200,
+                      "fused_update/obs18": epochs, **prep_launched(epochs)}
+              and epochs == 200,
               f"hovering to the end: {epochs} epochs, launches {got}")
         hist = info["history"]
         check(len(hist) == len(ref) == 50,
@@ -1094,7 +1227,8 @@ def train_and_eval_balloon(cli, runner_mod, fr, fu, kernels, run_root,
                                 for i in (0, 9, 24, len(hist) - 1)),
           flush=True)
     check(epochs == 200 and got == {"fused_rollout/balloon": epochs,
-                                    "fused_update/obs18": epochs},
+                                    "fused_update/obs18": epochs,
+                                    **prep_launched(epochs)},
           f"balloon: {epochs} epochs, launches {got}")
     check(all(math.isfinite(r["mean_reward"]) for r in hist),
           "balloon: a reward is not finite")
@@ -1706,7 +1840,8 @@ def multi_gpu(runner_mod, run_root, h_yaml, p_yaml, card):
     check(bitwise, "one rank over NCCL: the epoch differs from the "
                    "one-process epoch, want bitwise equal")
     check(reports[0]["launches"] == {"fused_rollout/hovering": 1,
-                                     "fused_update/obs18": 1},
+                                     "fused_update/obs18": 1,
+                                     **prep_launched(1)},
           f"one rank over NCCL: launches {reports[0]['launches']}")
     print(f"[multi-gpu hovering_1] backend nccl world 1: the epoch is "
           f"bitwise the one-process epoch (parameters and metrics)",
@@ -2032,6 +2167,7 @@ def main():
     from airgym_tpu_torch.kernels import render_ab as ra
     from airgym_tpu_torch.models.actor_critic import CNNEncoder
     from airgym_tpu_torch.models.actor_critic import ActorCritic
+    from airgym_tpu_torch.ops import epoch_prep as ep
     from airgym_tpu_torch.ops import fused_hovering as fh
     from airgym_tpu_torch.ops import fused_rollout as fr
     from airgym_tpu_torch.ops import fused_update as fu
@@ -2057,8 +2193,8 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     phase(2)
-    kernels = [fr.KERNEL, fu.KERNEL, fh.KERNEL, rc.KERNEL, rc.DEPTH_KERNEL,
-               fc.KERNEL]
+    kernels = [fr.KERNEL, fu.KERNEL, ep.KERNEL, fh.KERNEL, rc.KERNEL,
+               rc.DEPTH_KERNEL, fc.KERNEL]
     # the rollout source once more with its phase clocks (phases 6 and 11)
     fr_clk = build.CudaKernel(
         "fused_rollout", {**fr.KERNEL.entry_points,
@@ -2165,6 +2301,13 @@ def main():
     upd_args, upd_kw = update_case(fu, ts.model, ts.obs_rms, g, B, 18,
                                    ts.lr, pcfg, nmb)
     update_err = {"obs18": update_vs_plain(fu, upd_args, upd_kw, "obs18")}
+    prep_kw = dict(gamma=pcfg.gamma, tau=pcfg.tau,
+                   reward_scale=pcfg.reward_shaper_scale,
+                   value_bootstrap=pcfg.value_bootstrap)
+    prep_cases = {f"obs{k}": prep_case(dev, k, n_envs, H, 21 + k)
+                  for k in (18, 48)}
+    prep_err = {tag: prep_vs_plain(ep, c, prep_kw, tag)
+                for tag, c in prep_cases.items()}
 
     # ---- 5. train through the runner --------------------------------------
     phase(5)
@@ -2174,7 +2317,9 @@ def main():
                                        kernels)
     hover_checkpoint = info["checkpoint"]      # phase 36 plays it
     launches = {"hovering": fr.KERNEL.launches["hovering"],
-                "obs18": fu.KERNEL.launches["obs18"]}
+                "obs18": fu.KERNEL.launches["obs18"],
+                **{f"prep_{ph}[obs18]": ep.KERNEL.launches[ph]
+                   for ph in ep.PHASES}}
     print(f"[train hovering] {EPOCHS} epochs in {info['train_s']:.2f} s; "
           f"launches {launches}", flush=True)
     check(launches["hovering"] == EPOCHS,
@@ -2183,6 +2328,10 @@ def main():
     check(launches["obs18"] == EPOCHS,
           f"update kernel launches {launches['obs18']} != {EPOCHS} (1 per "
           f"epoch)")
+    for ph in ep.PHASES:
+        check(launches[f"prep_{ph}[obs18]"] == EPOCHS,
+              f"prep {ph} kernel launches {launches[f'prep_{ph}[obs18]']} "
+              f"!= {EPOCHS} (1 per epoch)")
     check(float(ts_run.adam["count"][0]) == EPOCHS * nmb * me,
           f"hovering Adam count {float(ts_run.adam['count'][0])} != "
           f"{EPOCHS * nmb * me} ({nmb * me} steps per epoch)")
@@ -2204,6 +2353,8 @@ def main():
         *update_bound(18, B, me))
     rollout_shape_and_split(fr, fr_clk, "hovering", packed, pack, seed, steps,
                             times)
+    for tag, c in prep_cases.items():
+        prep_times(ep, c, prep_kw, times, tag)
     k_ms, p_ms, b_ms, b_by = times["obs18"]
     print(f"[time] obs18: kernel {k_ms:.3f} ms (G={fu.grid_size(18, dev)} "
           f"blocks, plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by})",
@@ -2218,7 +2369,9 @@ def main():
 
     # ---- 7. where one epoch's time goes (torch.profiler) --------------------
     phase(7)
-    profile_epoch(trainer, ts_run, "hovering", expect={"update_kernel": 1})
+    prep_expect = {f"epoch_prep_{ph}_kernel": 1 for ph in ep.PHASES}
+    profile_epoch(trainer, ts_run, "hovering",
+                  expect={"update_kernel": 1, **prep_expect})
 
     # ---- 8. Balloon / Tracking rollouts, the update at 48 features ---------
     phase(8)
@@ -2312,7 +2465,9 @@ def main():
         t_trainer, t_ts, t_info = train_and_reload(
             runner_mod, ckpt, load_cfg(name), name, TASK_EPOCHS, run_root, g,
             kernels, num_envs=n_envs)
-        got = {rkey: fr.KERNEL.launches[rkey], ukey: fu.KERNEL.launches[ukey]}
+        got = {rkey: fr.KERNEL.launches[rkey], ukey: fu.KERNEL.launches[ukey],
+               **{f"prep_{ph}[{ukey}]": ep.KERNEL.launches[ph]
+                  for ph in ep.PHASES}}
         print(f"[train {name}] {TASK_EPOCHS} epochs in "
               f"{t_info['train_s']:.2f} s; launches {got}", flush=True)
         check(got[rkey] == TASK_EPOCHS,
@@ -2320,18 +2475,23 @@ def main():
         check(got[ukey] == TASK_EPOCHS,
               f"{name} update launches {got[ukey]} != {TASK_EPOCHS} (1 per "
               f"epoch)")
+        for ph in ep.PHASES:
+            check(got[f"prep_{ph}[{ukey}]"] == TASK_EPOCHS,
+                  f"{name} prep {ph} launches {got[f'prep_{ph}[{ukey}]']} "
+                  f"!= {TASK_EPOCHS} (1 per epoch)")
         steps = t_trainer.num_minibatches * t_trainer.cfg.mini_epochs
         check(float(t_ts.adam["count"][0]) == TASK_EPOCHS * steps,
               f"{name} Adam count {float(t_ts.adam['count'][0])} != "
               f"{TASK_EPOCHS * steps} ({steps} steps per epoch)")
         launches[rkey] = got[rkey]
-        if ukey not in launches:
-            launches[ukey] = got[ukey]
+        for key in (ukey, *(f"prep_{ph}[{ukey}]" for ph in ep.PHASES)):
+            launches.setdefault(key, got[key])
         if name == "balloon":
             for row in t_info["history"]:
                 check(0.0 <= row["success_rate"] <= 1.0,
                       f"balloon success_rate {row['success_rate']}")
-        profile_epoch(t_trainer, t_ts, name, expect={"update_kernel": 1})
+        profile_epoch(t_trainer, t_ts, name,
+                      expect={"update_kernel": 1, **prep_expect})
 
     # ---- 11. timing of the new kernels, the kernels line ------------------------
     phase(11)
@@ -2788,12 +2948,19 @@ def main():
 
     rollout_src = "airgym_tpu/ops/fused_rollout.py:105"
     update_src = "airgym_tpu/ops/fused_update.py:117"
+    # no TPU kernel: XLA ops of the jitted epoch (GAE's lax.scan, the
+    # running stats, the dataset)
+    prep_src = "airgym_tpu/rl/ppo.py:503-529"
     kernels_line = {"kernels": [
         entry(f"fused_rollout[{t}]", t, "fused_rollout.cu", rollout_src,
               rollout_err[t]) for t in ("hovering", "balloon", "tracking")
     ] + [
         entry(f"fused_update[{o}]", o, "fused_update.cu", update_src,
               update_err[o]) for o in ("obs18", "obs48")
+    ] + [
+        entry(f"epoch_prep_{ph}[{o}]", f"prep_{ph}[{o}]", "epoch_prep.cu",
+              prep_src, prep_err[o][ph])
+        for o in ("obs18", "obs48") for ph in ep.PHASES
     ] + [
         entry("fused_hovering", "env", "fused_hovering.cu",
               "airgym_tpu/ops/fused_hovering.py:119",

@@ -132,6 +132,41 @@ def test_update_kernel_matches_plain(device, B, nmb, obs):
                                    atol=5e-4)
 
 
+@pytest.mark.parametrize("obs", [18, 48])
+def test_epoch_prep_kernels_match_plain(device, obs):
+    """GAE, the stats and the dataset at 4096 envs x 24 steps, dones and
+    time-outs mixed: the three kernels against the plain twin, bitwise;
+    two calls bitwise; three launches a call."""
+    from airgym_tpu_torch.ops import epoch_prep as ep
+    from airgym_tpu_torch.rl.running_stats import RunningMeanStd
+    n, h = 4096, 24
+    g = torch.Generator(device=device).manual_seed(obs)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)
+    uni = lambda *shape: torch.rand(shape, generator=g, device=device)
+    rec = rnd(h, obs + 13, n)
+    rec[:, obs + 10] = 10.0 * uni(h, n) - 2.0
+    done = uni(h, n) < 0.04
+    rec[:, obs + 11] = done.float()
+    rec[:, obs + 12] = (done & (uni(h, n) < 0.5)).float()
+    orms = RunningMeanStd.create((obs,), device).update(2.0 * rnd(512, obs))
+    vrms = RunningMeanStd.create((), device).update(3.0 * rnd(512) - 1.0)
+    kw = dict(gamma=0.99, tau=0.95, reward_scale=0.1, value_bootstrap=True)
+    before = sum(ep.KERNEL.launches.values())
+    k = ep.epoch_prep(rec, rnd(n), orms, vrms, **kw)
+    assert sum(ep.KERNEL.launches.values()) == before + 3
+    last = rnd(n)
+    k = ep.epoch_prep(rec, last, orms, vrms, **kw)
+    k2 = ep.epoch_prep(rec, last, orms, vrms, **kw)
+    p = ep.epoch_prep_plain(rec, last, orms, vrms, **kw)
+    torch.cuda.synchronize()
+    for f in ep.Prep._fields:
+        want, a, b = (getattr(x, f) for x in (p, k, k2))
+        for w, x, y in (zip(want, a, b) if isinstance(want, RunningMeanStd)
+                        else [(want, a, b)]):
+            assert w.shape == x.shape and torch.equal(w, x), f
+            assert torch.equal(x, y), f
+
+
 @pytest.mark.parametrize("cull", [None, 4.5], ids=["unguarded", "guarded"])
 def test_render_kernel_matches_plain(device, cull):
     """The fused render + post-process kernel on Planning's scene (40
