@@ -132,3 +132,31 @@ def check(n, seed, tr, env_idx, seeds, prog_rows, prog_rew):
                                env_idx.repeat(k), tr["steps"])
     return (compare.sim_numbers(prog_rows, prog_rew, rows, rew),
             compare.sim_look(prog_rows, prog_rew, rows, rew))
+
+
+def controls(w: dict, seed: int, dev) -> dict:
+    """``control.py``'s readings of an env-only cell on ``seed``: the
+    reference's state kept in bf16 (the control), a step that returns its
+    state unchanged and every answer 1% off (faults)."""
+    tr = w["traffic_file"]
+    n = tr["num_envs"]
+    rng = random.Random(seed)
+    env_idx = torch.tensor(sorted(rng.sample(range(n), tr["checked_envs"])),
+                           device=dev)
+    seeds = [rng.getrandbits(32) for _ in range(tr["checked_calls"])]
+    packed, act = ref_sim.initial(n, seed, tr["action"], dev)
+    k = len(seeds)
+    cols = packed[:, env_idx].repeat(1, k)
+    call_seeds = torch.tensor(seeds, dtype=torch.int64,
+                              device=dev).repeat_interleave(len(env_idx))
+    idx = env_idx.repeat(k)
+    rows, rew = ref_sim.follow(cols, act, call_seeds, idx, tr["steps"])
+    rows_b, rew_b = ref_sim.follow(cols, act, call_seeds, idx, tr["steps"],
+                                   store=torch.bfloat16)
+    return {
+        "control_bf16": compare.sim_numbers(rows_b, rew_b, rows, rew),
+        "control_bf16.look": compare.sim_look(rows_b, rew_b, rows, rew),
+        "fault_state_unchanged": compare.sim_numbers(
+            cols[0:rows.shape[0]], torch.zeros_like(rew), rows, rew),
+        "fault_answer_altered": compare.sim_numbers(rows, rew * 1.01, rows,
+                                                    rew)}

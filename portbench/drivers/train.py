@@ -20,6 +20,7 @@ import time
 import torch
 
 from portbench import harness
+from portbench import program_trace
 from portbench import trace as trace_mod
 from portbench.counts import work
 from portbench.reference import compare
@@ -64,14 +65,24 @@ class Spans:
     def remove(self):
         for name in ("rollout", "update"):
             delattr(self.trainer, name)
+        self.trainer = None
 
 
 def _finite(m, keys) -> bool:
     return all(math.isfinite(float(m[k])) for k in keys if k in m)
 
 
-def window(trainer, ts, seed: int, seconds: float):
-    """Train for ``seconds``: (ts, epochs, failed, elapsed s)."""
+def after(seconds: float):
+    """The default stop rule: the first epoch boundary once ``seconds``
+    have passed."""
+    return lambda elapsed: elapsed >= seconds
+
+
+def window(trainer, ts, seed: int, seconds: float, stop=None):
+    """Train for ``seconds``: (ts, epochs, failed, elapsed s). ``stop``
+    (elapsed s -> bool), asked at each epoch boundary, ends the window in
+    place of ``after(seconds)``."""
+    stop = stop or after(seconds)
     from airgym_tpu_torch.rl import runner as runner_mod
     keys = runner_mod.LOGGED
     cfg = trainer.cfg
@@ -91,7 +102,7 @@ def window(trainer, ts, seed: int, seconds: float):
         if ts.epoch >= cfg.max_epochs:
             restarts += 1
             ts = trainer.init(seed + restarts)
-        if time.perf_counter() - t0 >= seconds:
+        if stop(time.perf_counter() - t0):
             break
     harness.sync(dev)
     if last is not None:
@@ -119,7 +130,7 @@ class Work:
                 self.in_dim, trainer.batch_size, cfg.mini_epochs))
         else:
             self._hook_render()
-            self._hook_cnn(ts.model)
+            self._hook_encoder(ts.model)
             self._hook_mlp(ts.model)
 
     def add(self, layer, seconds):
@@ -141,16 +152,24 @@ class Work:
         self._undo.append(lambda: setattr(raycast, "render_process_packed",
                                           orig))
 
-    def _hook_cnn(self, model):
-        enc = model.actor_cnn
+    def _hook_encoder(self, model):
+        """``model.encoder`` counted under its name (``model.image_encoder``)
+        by ``counts/encoders/<name>.py``; an encoder with no count file is
+        counted as nothing."""
+        name = getattr(model, "image_encoder", None)
+        path = harness.HERE / "counts" / "encoders" / f"{name}.py"
+        if name is None or not path.is_file():
+            return
+        count = harness.load_file(path, f"portbench_encoder_count_{name}")
+        enc = model.encoder
         fwd = enc.forward
 
         def counted(x):
             b, _, w, h = x.shape
-            flops = (work.cnn_train_flops if torch.is_grad_enabled()
-                     else work.cnn_forward_flops)(w, h, b)
-            self.add("cnn", work.least_s(flops, 2.0 * b * w * h,
-                                         work.PEAK_BF16))
+            flops = (count.train_flops if torch.is_grad_enabled()
+                     else count.forward_flops)(w, h, b)
+            self.add(name, work.least_s(flops, count.nbytes(w, h, b),
+                                        count.PEAK))
             return fwd(x)
         enc.forward = counted
         self._undo.append(lambda: delattr(enc, "forward"))
@@ -173,65 +192,114 @@ class Work:
             undo()
 
 
-def profile(trainer, ts, seconds: float):
+def profile(trainer, ts, seconds: float, stop=None):
     """Steady epochs under the profiler with marker spans, until
-    ``seconds`` have passed (one epoch at least): (ts, trace.Reading,
-    Work)."""
+    ``seconds`` have passed (one epoch at least; ``stop`` as in
+    ``window``): (ts, trace.Reading, Work)."""
+    stop = stop or after(seconds)
     acct = Work(trainer, ts)
     with trace_mod.Window() as win:
         spans = Spans(trainer, marks=win.marks)
         win.marks(AFTER["update"])
-        epochs, t0 = 0, time.perf_counter()
+        t0 = time.perf_counter()
         try:
-            while epochs == 0 or time.perf_counter() - t0 < seconds:
+            while True:
                 ts, _ = trainer.train_epoch(ts)
                 acct.epoch_done()
-                epochs += 1
+                if stop(time.perf_counter() - t0):
+                    break
         finally:
             spans.remove()
             acct.remove()
     return ts, win.read(), acct
 
 
-def run(w: dict, seed: int, seconds: float, trace: bool, t_start: float,
-        dev=torch.device("cuda")) -> dict:
+def set_up(params: dict, seed: int, epochs: int, dev, t_start: float,
+           plant=None, steps=None):
+    """A run's set-up: ``Runner.build`` and ``trainer.init(seed)``
+    (``plant(trainer)`` first puts a fault in), then the first ``epochs``
+    epochs through ``train_epoch``, ``steps`` (``reference/train``'s
+    ``FirstSteps``) watching the first update: (trainer, ts, Snapshot,
+    setup_s)."""
     from airgym_tpu_torch.rl import runner as runner_mod
-    params = w["config_file"]["params"]
-    tr = w["traffic_file"]
     runner = runner_mod.Runner().load({"params": params})
     _, trainer, _ = runner.build({"seed": seed, "device": str(dev)})
+    if plant is not None:
+        plant(trainer)
     ts = trainer.init(seed)
-    ts, snap = ref_train.snapshot(trainer, ts, tr["checked_epochs"],
-                                  keep_rollout_on="cpu")
+    if steps is not None:
+        steps.watch(trainer, ts.model)
+    try:
+        ts, snap = ref_train.snapshot(trainer, ts, epochs,
+                                      keep_rollout_on="cpu")
+    finally:
+        if steps is not None:
+            steps.close()
     harness.sync(dev)
-    setup_s = time.perf_counter() - t_start
+    return trainer, ts, snap, time.perf_counter() - t_start
 
-    out = {"metrics": {}}
-    if trace:
-        spans = Spans(trainer, timed=True)
-        ts, epochs, failed, _ = window(trainer, ts, seed, seconds)
-        spans.remove()
-        ts, reading, acct = profile(trainer, ts, tr["profile_seconds"])
-        ctx = {"trace": reading, "least": acct.least, "spans": spans}
-        out["metrics"] = harness.per_layer(w, ctx)
-        out["breakdown"] = reading.breakdown()
-        info = harness.device_info(w["chips"], dev)
-        info["busy_s"] = reading.busy_s()
-        info["window_s"] = reading.window_s
-    else:
-        ts, epochs, failed, elapsed = window(trainer, ts, seed, seconds)
+
+def measure(w: dict, trainer, ts, seed: int, seconds: float, trace: bool,
+            setup_s: float, shared=None):
+    """The window from ``ts``: (ts, epochs, failed, what it read): the
+    end-to-end metrics; traced, the per-layer readers' context (``trace``
+    and ``least`` of the profiled stretch, ``spans`` timed over the
+    window, ``program`` from the program's own stretch). ``shared``
+    (bool -> bool), asked at each epoch boundary of every stretch with
+    whether this process would stop, gives the answer all processes
+    take (over ranks: rank 0's)."""
+    tr = w["traffic_file"]
+    shared = shared or (lambda done: done)
+
+    def stop(limit):
+        return lambda elapsed: shared(elapsed >= limit)
+
+    if not trace:
+        ts, epochs, failed, elapsed = window(trainer, ts, seed, seconds,
+                                             stop(seconds))
         rate = epochs * trainer.batch_size / elapsed
-        for m in w["end_to_end"]:
-            value = {"setup_s": setup_s}.get(m["name"], rate)
-            out["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
-        info = harness.device_info(w["chips"], dev)
-    out.update(attempted=epochs, failed=failed, device=info)
+        return ts, epochs, failed, {
+            m["name"]: {"value": {"setup_s": setup_s}.get(m["name"], rate),
+                        "unit": m["unit"]} for m in w["end_to_end"]}
+    spans = Spans(trainer, timed=True)
+    ts, epochs, failed, _ = window(trainer, ts, seed, seconds, stop(seconds))
+    spans.remove()
+    ts, reading, acct = profile(trainer, ts, tr["profile_seconds"],
+                                stop(tr["profile_seconds"]))
+    program = program_trace.train(trainer, stop(program_trace.STRETCH_S))
+    return ts, epochs, failed, {"trace": reading, "least": acct.least,
+                                "spans": spans, "program": program}
 
-    # the program's state is freed before the reference runs
-    del ts, trainer, runner
+
+def free(dev) -> None:
+    """Return the freed program state's memory before the reference runs
+    (the caller has dropped its references)."""
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def run(w: dict, seed: int, seconds: float, trace: bool, t_start: float,
+        dev=torch.device("cuda")) -> dict:
+    params = w["config_file"]["params"]
+    tr = w["traffic_file"]
+    trainer, ts, snap, setup_s = set_up(params, seed, tr["checked_epochs"],
+                                        dev, t_start)
+    ts, epochs, failed, got = measure(w, trainer, ts, seed, seconds, trace,
+                                      setup_s)
+    info = harness.device_info(w["chips"], dev)
+    out = {"attempted": epochs, "failed": failed, "device": info}
+    if trace:
+        out["metrics"] = harness.per_layer(w, got)
+        out["breakdown"] = got["trace"].breakdown()
+        info.update(busy_s=got["trace"].busy_s(),
+                    window_s=got["trace"].window_s)
+    else:
+        out["metrics"] = got
+
+    # the program's state is freed before the reference runs
+    del ts, trainer, got
+    free(dev)
     t_ref = time.perf_counter()
     ref = ref_train.follow(params, seed, tr["checked_epochs"], dev)
     replay = ref_train.replay(params, seed, dev, snap.rollout,
@@ -240,4 +308,25 @@ def run(w: dict, seed: int, seconds: float, trace: bool, t_start: float,
     out["look"] = compare.train_look(snap, ref, replay)
     out["look"].update(setup_s=setup_s,
                        reference_s=time.perf_counter() - t_ref)
+    return out
+
+
+def controls(w: dict, seed: int, dev) -> dict:
+    """``control.py``'s readings of a training cell on ``seed``: the
+    reference put in the program's place in TF32 (the control) and with
+    half of each minibatch left out (a fault)."""
+    params = w["config_file"]["params"]
+    epochs = w["traffic_file"]["checked_epochs"]
+    ref = ref_train.follow(params, seed, epochs, dev)
+    out = {}
+    for name, cand in (
+            ("control_tf32", ref_train.follow(params, seed, epochs, dev,
+                                              tf32=True)),
+            ("fault_half_batch", ref_train.follow(
+                params, seed, epochs, dev,
+                fault=ref_train.plant_half_batch))):
+        replay = ref_train.replay(params, seed, dev, cand.rollout,
+                                  cand.last_value)
+        out[name] = compare.train_numbers(cand, ref, replay)
+        out[f"{name}.look"] = compare.train_look(cand, ref, replay)
     return out

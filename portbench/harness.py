@@ -3,6 +3,7 @@ the device checks, the per-layer readers, the comparison with its limits
 and the result line."""
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import math
@@ -42,14 +43,34 @@ def cell(name: str, sp: Optional[dict] = None) -> dict:
     return w
 
 
-def reader(metric: str) -> Callable[[dict], Optional[float]]:
-    """``metrics/<metric>.py``'s ``read(ctx)``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_')}", path)
+def load_file(path: Path, name: str):
+    """The module in ``path`` (a file found by name), loaded as ``name``."""
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str) -> Callable[[dict], Optional[float]]:
+    """``metrics/<metric>.py``'s ``read(ctx)``."""
+    return load_file(HERE / "metrics" / f"{metric}.py",
+                     f"portbench_metric_{metric.replace('.', '_')}").read
+
+
+def kinds() -> list:
+    """The traffic kinds that have a driver (``drivers/<kind>.py``)."""
+    return sorted(p.stem for p in (HERE / "drivers").glob("*.py")
+                  if not p.stem.startswith("_"))
+
+
+def driver(kind: str):
+    """``drivers/<kind>.py``, the general driver of a traffic kind: its
+    ``run(w, seed, seconds, trace, t_start)`` makes one run. A kind with
+    no driver file exits non-zero, naming the kinds present."""
+    if kind not in kinds():
+        raise SystemExit(f"traffic kind {kind!r} has no driver "
+                         f"(portbench/drivers/{kind}.py); kinds: {kinds()}")
+    return importlib.import_module(f"portbench.drivers.{kind}")
 
 
 def require_cards(n: int) -> None:

@@ -24,18 +24,21 @@ def span_ms(ctx, name):
     return 1e3 * spans.total[name] / spans.count[name]
 
 
-def kernel_s(ctx, layer):
-    names = KERNELS[layer]
+def kernel_s(ctx, layer, names=None):
+    """Device seconds of the kernels whose names hold one of ``names``
+    (the layer's ``KERNELS`` by default)."""
+    names = names or KERNELS[layer]
     hits = [e for e in ctx["trace"].events
             if any(w in e[2].lower() for w in names)]
     return sum(e[1] - e[0] for e in hits) * 1e-6
 
 
-def roofline(ctx, layer):
+def roofline(ctx, layer, names=None):
     """Least time of the layer's counted work over its kernels' device
-    time, in %."""
+    time, in % (``names`` as in ``kernel_s``: a reader of a layer this
+    file does not list gives its own)."""
     least = ctx["least"].get(layer)
-    t = kernel_s(ctx, layer)
+    t = kernel_s(ctx, layer, names)
     if not least or t <= 0.0:
         return None
     return 100.0 * least / t

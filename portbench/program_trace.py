@@ -22,12 +22,13 @@ CUDA runtime's host-side calls, which ``trace.Reading`` drops):
 Per root span (epoch, or ``rollout_fused`` call) unless a reader divides
 otherwise. The program is traced only in a stretch of this module's own,
 made after the benchmark's profiled stretch and without its marker
-kernels: the drivers leave the tracer off. ``reading(ctx)`` makes it
-once per run and keeps it in ``ctx["program"]`` (a ``Program``); a
-per-layer reader reads a span with ``reading(ctx).idle_ms("gae")``,
-``.launches("epoch")`` or ``.syncs("epoch")``. The reading is None
-without a card, or where the program has no tracer
-(``profiling.start``).
+kernels: the drivers leave the tracer off. A training driver makes it
+(``train``) and keeps it in ``ctx["program"]`` (a ``Program``); an
+env-only cell's is made from the cell's files the first time a reader
+asks (``reading(ctx, cell)``). A per-layer reader reads a span with
+``reading(ctx).idle_ms("gae")``, ``.launches("epoch")`` or
+``.syncs("epoch")``. The reading is None without a card, or where the
+program has no tracer (``profiling.start``).
 """
 from __future__ import annotations
 
@@ -190,36 +191,38 @@ def _tracer():
     return profiling if hasattr(profiling, "start") else None
 
 
-def _stretch(profiling, step) -> Program:
-    """``step()`` under ``trace.Window`` with the program traced, until
-    ``STRETCH_S`` has passed (one step at least)."""
+def _stretch(profiling, step, stop=None) -> Program:
+    """``step()`` under ``trace.Window`` with the program traced, one step
+    at least, until ``stop(elapsed s)`` (by default: ``STRETCH_S`` has
+    passed)."""
+    stop = stop or (lambda elapsed: elapsed >= STRETCH_S)
     with trace_mod.Window() as win:
-        steps, t0 = 0, time.perf_counter()
+        t0 = time.perf_counter()
         profiling.start()
         try:
-            while steps == 0 or time.perf_counter() - t0 < STRETCH_S:
+            while True:
                 step()
-                steps += 1
+                if stop(time.perf_counter() - t0):
+                    break
         finally:
             records = profiling.stop()
     return from_window(win, records)
 
 
-def train(ctx) -> Optional[Program]:
-    """A new job of the traced run's trainer (``ctx["spans"].trainer``)
-    from ``SEED``: a stretch of epochs."""
+def train(trainer, stop=None) -> Optional[Program]:
+    """A new job of the traced run's trainer from ``SEED``: a stretch of
+    epochs (``stop`` as in ``_stretch``; over ranks, the ranks' shared
+    decision)."""
     profiling = _tracer()
-    spans = ctx.get("spans")
-    if profiling is None or spans is None or not torch.cuda.is_available():
+    if profiling is None or not torch.cuda.is_available():
         return None
-    trainer = spans.trainer
     ts = trainer.init(SEED)
     harness.sync(trainer.device)
 
     def step():
         nonlocal ts
         ts, _ = trainer.train_epoch(ts)
-    return _stretch(profiling, step)
+    return _stretch(profiling, step, stop)
 
 
 def sim(cell: str) -> Optional[Program]:
@@ -252,9 +255,9 @@ def sim(cell: str) -> Optional[Program]:
 
 
 def reading(ctx, cell: Optional[str] = None) -> Optional[Program]:
-    """The run's program reading, made once and kept in ``ctx``: a
-    training cell's from its trainer, an env-only cell's (``cell``) from
-    the cell's files."""
+    """The run's program reading: a training cell's as its driver made it
+    (``train``), an env-only cell's (``cell``) made once from the cell's
+    files and kept in ``ctx``."""
     if "program" not in ctx:
-        ctx["program"] = train(ctx) if cell is None else sim(cell)
+        ctx["program"] = None if cell is None else sim(cell)
     return ctx["program"]

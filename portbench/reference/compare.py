@@ -13,6 +13,9 @@ import torch
 # leaf's is nought to rounding (a bias under softmax, say) and moves under
 # Adam by round-off alone: it is left out of the change
 NOUGHT = 1e-3
+# envs compared at a time: a rollout's fields in float64 take 8 bytes an
+# element (16,384 envs' frames would take 23 GB at once)
+ENVS = 512
 
 
 def _norms(tree: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -24,33 +27,46 @@ def worst_leaf_gap(prog: Dict[str, float], ref: Dict[str, float],
                    keep) -> float:
     """max over the kept leaves of |prog norm - ref norm| / max(ref norm,
     the median kept leaf's ref norm)."""
+    return max(leaf_gaps(prog, ref, keep).values())
+
+
+def leaf_gaps(prog: Dict[str, float], ref: Dict[str, float],
+              keep) -> Dict[str, float]:
+    """Each kept leaf's gap of ``worst_leaf_gap``."""
     med = statistics.median(ref[k] for k in keep)
-    return max(abs(prog[k] - ref[k]) / max(ref[k], med) for k in keep)
+    return {k: abs(prog[k] - ref[k]) / max(ref[k], med) for k in keep}
 
 
-def rollout_gaps(prog: Dict[str, Any], ref: Dict[str, Any]) -> torch.Tensor:
+def rollout_gaps(prog: Dict[str, Any], ref: Dict[str, Any],
+                 by_field: bool = False):
     """Each env's gap between two first-epoch rollouts: over every field
     (time-major [T, N, ...], the observation dict's too), the env's
     largest |gap| as a share of the median env's largest |ref| value of
-    that field (1 where that median is 0)."""
-    gaps = []
+    that field (1 where that median is 0); ``by_field``: {field: the
+    envs' gaps in it}."""
+    gaps = {}
 
-    def add(p, r):
-        p = p.detach().to(r.device).double()
-        p = p.transpose(0, 1).reshape(p.shape[1], -1)
-        r = r.detach().double().transpose(0, 1).reshape(r.shape[1], -1)
-        scale = float(torch.median(r.abs().amax(1))) or 1.0
-        gaps.append((p - r).abs().amax(1) / scale)
+    def add(name, p, r):
+        ref_max, gap_max = [], []
+        for i in range(0, r.shape[1], ENVS):
+            rr = r[:, i:i + ENVS].detach().double()
+            pp = p[:, i:i + ENVS].detach().to(r.device).double()
+            rr = rr.transpose(0, 1).reshape(rr.shape[1], -1)
+            pp = pp.transpose(0, 1).reshape(pp.shape[1], -1)
+            ref_max.append(rr.abs().amax(1))
+            gap_max.append((pp - rr).abs().amax(1))
+        scale = float(torch.median(torch.cat(ref_max))) or 1.0
+        gaps[name] = torch.cat(gap_max) / scale
 
     for k, r in ref.items():
         if k == "frame_idx" or r is None:
             continue
         if isinstance(r, dict):
             for kk, rr in r.items():
-                add(prog[k][kk], rr)
+                add(f"{k}.{kk}", prog[k][kk], rr)
         else:
-            add(prog[k], r)
-    return torch.stack(gaps).amax(0)
+            add(k, prog[k], r)
+    return gaps if by_field else torch.stack(list(gaps.values())).amax(0)
 
 
 def train_numbers(prog, ref, replay) -> Dict[str, float]:
@@ -72,6 +88,77 @@ def train_numbers(prog, ref, replay) -> Dict[str, float]:
             "grad_gap": worst_leaf_gap(g_prog, g_ref, keep),
             "change_gap": _change_gap(prog.p0, prog.p1, replay.p0,
                                       replay.p1, keep)}
+
+
+def ranks_numbers(prog_rollout, ref_rollout, prog_steps, ref_steps,
+                  n: int = None) -> Dict[str, float]:
+    """The numbers of a run over ranks. rollout_gap.p99: the ranks'
+    gathered first rollout against the reference's own from the seed
+    (``rollout_gaps``). Against the reference's first update replayed on
+    that rollout, over its first ``n`` Adam steps (by default the last
+    mark of the ``train.FirstSteps`` readings, one per rank):
+    loss_gap.steps1-n, each rank's loss of each step against the
+    reference's of that rank's share, as a share of it; grad_gap.step1,
+    the first step's gradient as Adam gets it, worst leaf;
+    change_gap.steps1-n, the parameters' change over the n steps, worst
+    leaf; each the worst rank's. A rank whose update never ran reads 1."""
+    env = rollout_gaps(prog_rollout, ref_rollout)
+    n = n or max(ref_steps[0]["change"])
+    gaps = steps_gaps(prog_steps, ref_steps, n)
+    return {"rollout_gap.p99": float(torch.quantile(env, 0.99)),
+            f"loss_gap.steps1-{n}": max(g["loss"] for g in gaps),
+            "grad_gap.step1": max(g["grad"] for g in gaps),
+            f"change_gap.steps1-{n}": max(g["change"] for g in gaps)}
+
+
+def steps_gaps(prog_steps, ref_steps, n: int) -> list:
+    """Each rank's gaps over the first ``n`` steps (a mark of the
+    readings): the loss of each step, the first step's gradient and the
+    change over the ``n`` steps, with the worst leaf of each norm."""
+    keep = _moving(ref_steps[0]["grad"])
+    out = []
+    for p, r in zip(prog_steps, ref_steps):
+        zero = {k: 0.0 for k in r["grad"]}
+        losses = (p["losses"] + [0.0] * n)[:n]
+        grad = leaf_gaps(p["grad"] or zero, r["grad"], keep)
+        change = leaf_gaps(p["change"].get(n) or zero, r["change"][n], keep)
+        out.append({"loss": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses, r["losses"][:n])),
+                    "grad": max(grad.values()),
+                    "change": max(change.values()),
+                    "grad_leaf": max(grad, key=grad.get),
+                    "change_leaf": max(change, key=change.get)})
+    return out
+
+
+def ranks_look(prog_rollout, ref_rollout, prog_steps,
+               ref_steps) -> Dict[str, Any]:
+    """The first rollout: the worst env, the share of envs over 1e-3 and
+    the 99th percentile in each rank's block of envs, and the field of
+    the worst env's gap; each rank's gaps over the steps to each mark
+    (``steps_gaps``), with the worst leaf's name."""
+    world = len(prog_steps)
+    fields = rollout_gaps(prog_rollout, ref_rollout, by_field=True)
+    env = torch.stack(list(fields.values())).amax(0)
+    worst = int(env.argmax())
+    out = {"rollout_gap.max": float(env.max()),
+           "rollout_gap.worst_field": max(
+               fields, key=lambda k: float(fields[k][worst])),
+           "rollout_gap.share_over_1e-3": float(
+               (env > 1e-3).double().mean())}
+    for r, block in enumerate(env.chunk(world)):
+        out[f"rollout_gap.share_over_1e-3.rank{r}"] = float(
+            (block > 1e-3).double().mean())
+        out[f"rollout_gap.p99.rank{r}"] = float(torch.quantile(block, 0.99))
+    for n in sorted(ref_steps[0]["change"]):
+        for r, g in enumerate(steps_gaps(prog_steps, ref_steps, n)):
+            out.update({f"{k}_gap.steps1-{n}.rank{r}": g[k]
+                        for k in ("loss", "change")})
+            out[f"change_worst_leaf.steps1-{n}.rank{r}"] = g["change_leaf"]
+            if n == min(ref_steps[0]["change"]):
+                out[f"grad_gap.step1.rank{r}"] = g["grad"]
+                out[f"grad_worst_leaf.rank{r}"] = g["grad_leaf"]
+    return out
 
 
 def train_look(prog, ref, replay) -> Dict[str, float]:
@@ -101,8 +188,10 @@ def train_look(prog, ref, replay) -> Dict[str, float]:
 
 
 def _moving(g_ref):
+    """The leaves whose reference gradient is not nought to rounding (and
+    not exactly 0, where more than half the leaves get none)."""
     med = statistics.median(g_ref.values())
-    return [k for k in g_ref if g_ref[k] >= NOUGHT * med]
+    return [k for k in g_ref if g_ref[k] >= NOUGHT * med and g_ref[k] > 0]
 
 
 def _change_gap(p_a, p_b, r_a, r_b, keep) -> float:

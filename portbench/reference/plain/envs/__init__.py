@@ -1,17 +1,27 @@
-"""The two tasks the benchmark's configurations train."""
+"""The tasks the benchmark's configurations train, each in a file of its
+own: ``<env_name>.py`` names its task class ``TASK`` and its config
+dataclass ``CFG``."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from pathlib import Path
 
 from portbench.reference.plain import device as device_mod
-from portbench.reference.plain.envs.hovering import Hovering, HoveringCfg
-from portbench.reference.plain.envs.planning import Planning, PlanningCfg
 
-_REGISTRY = {"hovering": (Hovering, HoveringCfg),
-             "planning": (Planning, PlanningCfg)}
+HERE = Path(__file__).resolve().parent
+
+
+def names() -> list:
+    return sorted(p.stem for p in HERE.glob("*.py")
+                  if not p.stem.startswith("_") and p.stem != "base")
 
 
 def make_task(name: str, num_envs: int, device=None, **overrides):
-    task_cls, cfg_cls = _REGISTRY[name]
-    cfg = dataclasses.replace(cfg_cls(), num_envs=num_envs, **overrides)
-    return task_cls(cfg, device_mod.resolve(device))
+    """The task of ``<name>.py``, found by name."""
+    if name not in names():
+        raise ValueError(f"the reference has no task {name!r} "
+                         f"(reference/plain/envs/{name}.py); has {names()}")
+    mod = importlib.import_module(f"{__name__}.{name}")
+    cfg = dataclasses.replace(mod.CFG(), num_envs=num_envs, **overrides)
+    return mod.TASK(cfg, device_mod.resolve(device))

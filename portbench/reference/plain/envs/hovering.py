@@ -112,3 +112,7 @@ class Hovering(base.QuadEnvCore):
         die |= rel[..., 2] > 2.0
         die |= ups < 0.0
         return reward, die
+
+
+# this file's task and its config, as ``envs.make_task`` finds them
+TASK, CFG = Hovering, HoveringCfg

@@ -257,3 +257,7 @@ class Planning(base.QuadEnvCore):
         die |= heading_r < 0.25
 
         return reward, die
+
+
+# this file's task and its config, as ``envs.make_task`` finds them
+TASK, CFG = Planning, PlanningCfg

@@ -10,16 +10,27 @@ image [B, 1, W, H] is normalised per pixel and encoded, and the MLP reads
 [observation ++ features], normalised by the 'observation' running stats.
 Its keys are ``actor_cnn.features.{0,3,6}`` (convs), ``.features.{2,5,8}``
 (batch norms) and ``actor_cnn.fc``.
+
+Another encoder comes in a file of its own: the network block ``<name>``
+is built by ``models/<name>.py``, whose ``build(block, generator)``
+returns (module, feature count) and whose ``MODULE`` names the module in
+the parameter keys. A frozen part has ``requires_grad`` off, and Adam
+leaves it out (``rl/ppo.trainable``).
 """
 from __future__ import annotations
 
+import importlib
 import math
-from typing import Optional, Sequence
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 UNITS = (64, 128, 64)
+HERE = Path(__file__).resolve().parent
+# the network block's keys that are not an image encoder
+TRUNK_KEYS = {"name", "separate", "space", "mlp"}
 
 
 def _lecun_normal_(w: torch.Tensor, scale: float,
@@ -117,14 +128,22 @@ class ActorCritic(nn.Module):
     running stats, or a dict {'image': [B,1,W,H], 'observation': [B,D]}
     (or {'observation', 'features'}: encoder features computed already)
     with a dict of stats {'image', 'observation'}, and returns (mu [B,A],
-    sigma [B,A], value [B,1]). ``image_feature_dim`` > 0 adds the CNN."""
+    sigma [B,A], value [B,1]). ``image_feature_dim`` > 0 adds the CNN, or
+    ``encoder`` = (module name, module) when another encoder was built
+    (``build``)."""
 
     def __init__(self, num_obs: int, num_actions: int,
                  image_feature_dim: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 encoder: Optional[Tuple[str, nn.Module]] = None):
         super().__init__()
         self.image_features = image_feature_dim
-        if image_feature_dim:
+        self.encoder_module = None
+        if encoder is not None:
+            self.encoder_module = encoder[0]
+            setattr(self, encoder[0], encoder[1])
+        elif image_feature_dim:
+            self.encoder_module = "actor_cnn"
             self.actor_cnn = CNNEncoder(image_feature_dim, generator)
         self.actor_mlp = MLP(num_obs + image_feature_dim, UNITS)
         self.mu = nn.Linear(UNITS[-1], num_actions)
@@ -140,7 +159,7 @@ class ActorCritic(nn.Module):
     def encode_image(self, img: torch.Tensor, obs_rms) -> torch.Tensor:
         """Camera frames [B, 1, W, H] (any float dtype) -> features; the
         per-pixel normalisation runs in float32."""
-        return self.actor_cnn(obs_rms["image"].normalize(
+        return getattr(self, self.encoder_module)(obs_rms["image"].normalize(
             img.to(torch.float32)))
 
     def encode(self, obs, obs_rms):
@@ -169,8 +188,8 @@ def build(network: dict, num_obs: int, num_actions: int, image: bool,
           generator: Optional[torch.Generator] = None) -> ActorCritic:
     """The YAML's ``network`` block -> ActorCritic. Only what the
     configurations state is built: a shared [64, 128, 64] elu trunk with a
-    fixed sigma, and the CNN encoder for image observations; anything else
-    is refused."""
+    fixed sigma, and for image observations one encoder block: ``cnn``, or
+    one whose ``models/<name>.py`` exists; anything else is refused."""
     mlp = network.get("mlp", {})
     got = (tuple(mlp.get("units", UNITS)), mlp.get("activation", "elu"),
            bool(network.get("separate", False)),
@@ -179,12 +198,30 @@ def build(network: dict, num_obs: int, num_actions: int, image: bool,
     if got != (UNITS, "elu", False, True):
         raise ValueError(f"the reference builds the shared [64, 128, 64] elu "
                          f"trunk with a fixed sigma only, got {got}")
-    extra = set(network) - {"name", "separate", "space", "mlp", "cnn"}
-    if extra or ("cnn" in network) != image:
-        raise ValueError(f"the reference builds the CNN encoder for image "
+    blocks = sorted(set(network) - TRUNK_KEYS)
+    known = [b for b in blocks if b == "cnn" or _has_file(b)]
+    if known != blocks or len(blocks) != int(image):
+        raise ValueError(f"the reference builds one encoder block (cnn, or "
+                         f"one of reference/plain/models/) for image "
                          f"observations only, got {sorted(network)}")
-    feat = int(network["cnn"].get("output_dim", 30)) if image else 0
-    return ActorCritic(num_obs, num_actions, feat, generator)
+    if not image:
+        return ActorCritic(num_obs, num_actions, 0, generator)
+    name = blocks[0]
+    if name == "cnn":
+        return ActorCritic(num_obs, num_actions,
+                           int(network["cnn"].get("output_dim", 30)),
+                           generator)
+    mod = importlib.import_module(f"{__package__}.{name}")
+    module, feat = mod.build(network[name], generator)
+    return ActorCritic(num_obs, num_actions, feat, generator,
+                       encoder=(mod.MODULE, module))
+
+
+def _has_file(name: str) -> bool:
+    """Whether ``models/<name>.py`` builds the encoder block ``name``
+    (this file and private ones build none)."""
+    return (name.isidentifier() and not name.startswith("_")
+            and name != "actor_critic" and (HERE / f"{name}.py").is_file())
 
 
 def neglogp(x, mu, sigma, logstd):

@@ -97,8 +97,14 @@ class Rollout(NamedTuple):
     frames: Optional[torch.Tensor] = None
 
 
+def trainable(model: ac.ActorCritic) -> Dict[str, torch.Tensor]:
+    """The parameters Adam steps: all but a frozen encoder's, which have
+    ``requires_grad`` off."""
+    return {k: p for k, p in model.named_parameters() if p.requires_grad}
+
+
 def adam_init(model: ac.ActorCritic) -> Dict[str, Any]:
-    p = dict(model.named_parameters())
+    p = trainable(model)
     return {"m": {k: torch.zeros_like(v.detach()) for k, v in p.items()},
             "v": {k: torch.zeros_like(v.detach()) for k, v in p.items()},
             "count": torch.zeros(1, dtype=torch.float32,
@@ -155,6 +161,12 @@ class PPO:
                              f"({self.cam_every}) has to divide the horizon "
                              f"({cfg.horizon})")
         self.num_frames = cfg.horizon // self.cam_every + 1
+        # a run over ``ranks`` processes, done in one: the policy runs on
+        # each rank's block of envs, and each minibatch is taken in the
+        # ranks' equal shares whose gradients add in rank order, or in
+        # ``sum_order`` (a permutation of the ranks)
+        self.ranks = 1
+        self.sum_order = None
 
     def init(self, seed: int) -> TrainState:
         dev, n = self.device, self.num_envs
@@ -192,9 +204,21 @@ class PPO:
 
     # ---------------------------------------------------------------- rollout
 
+    def _by_rank(self, fn, obs):
+        """``fn(obs)``, or over each rank's block of envs, concatenated."""
+        if self.ranks == 1:
+            return fn(obs)
+        n = self.num_envs // self.ranks
+        rows = lambda x, r: ({k: v[r * n:(r + 1) * n] for k, v in x.items()}
+                             if isinstance(x, dict) else x[r * n:(r + 1) * n])
+        outs = [fn(rows(obs, r)) for r in range(self.ranks)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+
     def _policy(self, ts: TrainState, obs, generator):
-        mu, sigma, value, prenorm = ts.model(obs, ts.obs_rms,
-                                             return_prenorm=True)
+        mu, sigma, value, prenorm = self._by_rank(
+            lambda o: ts.model(o, ts.obs_rms, return_prenorm=True), obs)
         action = mu + sigma * torch.randn(mu.shape, generator=generator,
                                           dtype=mu.dtype, device=mu.device)
         nlp = ac.neglogp(action, mu, sigma, torch.log(sigma))
@@ -212,7 +236,8 @@ class PPO:
         feat = frames = frame_idx = None
         if dedup:
             c0 = int(env_state.counter)
-            feat = ts.model.encode_image(obs["image"], rms)
+            feat = self._by_rank(lambda img: ts.model.encode_image(img, rms),
+                                 obs["image"])
             frames = torch.empty((self.num_frames,) + obs["image"].shape,
                                  dtype=torch.bfloat16, device=dev)
             frames[0] = obs["image"].to(torch.bfloat16)
@@ -242,10 +267,12 @@ class PPO:
             obs = out.obs
             if dedup and render:
                 # the just-rendered frame: features for the next block
-                feat = ts.model.encode_image(obs["image"], rms)
+                feat = self._by_rank(
+                    lambda img: ts.model.encode_image(img, rms),
+                    obs["image"])
                 frames[(h + 1) // ce] = obs["image"].to(torch.bfloat16)
 
-        _, _, last_value = ts.model(obs, rms)
+        _, _, last_value = self._by_rank(lambda o: ts.model(o, rms), obs)
         traj = {k: torch.stack(v) for k, v in rec.items()}
         if dedup:
             traj["obs"] = {"observation": traj["obs"]}
@@ -317,6 +344,7 @@ class PPO:
         cfg = self.cfg
         nmb = self.num_minibatches
         mb_size = self.batch_size // nmb
+        part = mb_size // self.ranks
         dataset = dict(dataset)
         frames = dataset.pop("frames", None)
         frame_idx = dataset.pop("frame_idx", None)
@@ -325,7 +353,7 @@ class PPO:
         sigmas = dataset.pop("sigmas_init").clone()
 
         model, rms = ts.model, ts.obs_rms
-        names, params = map(list, zip(*model.named_parameters()))
+        names, params = map(list, zip(*trainable(model).items()))
         m = [ts.adam["m"][k].clone() for k in names]
         v = [ts.adam["v"][k].clone() for k in names]
         count = ts.adam["count"].clone()
@@ -333,20 +361,33 @@ class PPO:
         for _ in range(cfg.mini_epochs):
             rows = []
             for k in range(nmb):
-                sl = slice(k * mb_size, (k + 1) * mb_size)
-                mb = {key: val[sl] for key, val in dataset.items()}
-                if isinstance(obs, dict):
-                    mob = {key: val[sl] for key, val in obs.items()}
-                    mob["image_unique"], mob["feat_index"] = \
-                        self.unique_window(frames, frame_idx, k * mb_size,
-                                           mb_size)
-                else:
-                    mob = obs[sl]
-                mb["obs"], mb["mus"], mb["sigmas"] = mob, mus[sl], sigmas[sl]
-                loss, aux = self._loss_fn(model, rms, ts.value_rms, mb)
-                grads = list(torch.autograd.grad(loss, params))
-                rows.append(torch.stack([loss.detach()] + [
-                    aux[key] for key in METRICS[1:]]))
+                shares, written = [], []
+                for r in range(self.ranks):
+                    start = k * mb_size + r * part
+                    sl = slice(start, start + part)
+                    mb = {key: val[sl] for key, val in dataset.items()}
+                    if isinstance(obs, dict):
+                        mob = {key: val[sl] for key, val in obs.items()}
+                        mob["image_unique"], mob["feat_index"] = \
+                            self.unique_window(frames, frame_idx, start, part)
+                    else:
+                        mob = obs[sl]
+                    mb["obs"], mb["mus"], mb["sigmas"] = \
+                        mob, mus[sl], sigmas[sl]
+                    loss, aux = self._loss_fn(model, rms, ts.value_rms, mb)
+                    if self.ranks > 1:
+                        loss = loss / self.ranks
+                    g = list(torch.autograd.grad(loss, params))
+                    rw = torch.stack([loss.detach()] + [
+                        aux[key] / self.ranks for key in METRICS[1:]])
+                    shares.append((g, rw))
+                    written.append((sl, aux["mu"], aux["sigma"]))
+                order = self.sum_order or range(self.ranks)
+                grads, row = shares[order[0]]
+                for r in order[1:]:
+                    grads = [a + b for a, b in zip(grads, shares[r][0])]
+                    row = row + shares[r][1]
+                rows.append(row)
                 with torch.no_grad():
                     gnorm = torch.linalg.vector_norm(
                         torch.stack(torch._foreach_norm(grads)))
@@ -354,7 +395,8 @@ class PPO:
                         cfg.grad_norm / torch.clamp_min(gnorm, 1e-6), 1.0)
                     torch._foreach_mul_(grads, scale)
                     adam_step(params, grads, m, v, count, lr)
-                    mus[sl], sigmas[sl] = aux["mu"], aux["sigma"]
+                    for sl, mu, sigma in written:
+                        mus[sl], sigmas[sl] = mu, sigma
             means = torch.stack(rows).mean(0)
             av_kl, thr = means[1], cfg.kl_threshold
             lr = torch.where(av_kl > 2.0 * thr,

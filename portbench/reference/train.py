@@ -65,10 +65,11 @@ def ppo_config(params: Dict[str, Any]) -> ppo_mod.PPOConfig:
         max_epochs=int(c["max_epochs"]))
 
 
-def build(params: Dict[str, Any], device):
+def build(params: Dict[str, Any], device, ranks: int = 1):
     """The trainer for ``params`` on ``device``: the fused Hovering trainer
     where the YAML asks for it (the runner's rule: Hovering, rate mode,
-    envs in whole tiles of 1024), else the plain PPO."""
+    envs in whole tiles of 1024), else the plain PPO; ``ranks`` > 1 (plain
+    PPO) does a run over that many ranks in one process (``PPO.ranks``)."""
     c = params["config"]
     env_kw = dict(c.get("env_config") or {})
     env_kw.pop("use_image", None)
@@ -77,7 +78,82 @@ def build(params: Dict[str, Any], device):
     fused = (c.get("use_fused_rollout") and c["env_name"] == "hovering"
              and int(c["num_actors"]) % TILE == 0)
     cls = fused_ppo.FusedHoveringPPO if fused else ppo_mod.PPO
-    return cls(task, ppo_config(params), params["network"])
+    trainer = cls(task, ppo_config(params), params["network"])
+    if ranks > 1:
+        if fused:
+            raise ValueError("the fused reference runs in one rank")
+        trainer.ranks = ranks
+    return trainer
+
+
+class FirstSteps:
+    """The first Adam steps of a trainer's update as ``adam_step`` gets
+    them, to the last of ``marks`` (step counts, ascending): the loss of
+    each minibatch or share (``_loss_fn``, in call order), the first
+    step's gradient norms by leaf, and the norms of the parameters'
+    change over the steps to each mark. ``module`` is the one whose
+    ``adam_step`` the trainer's update calls (this reference's
+    ``plain/rl/ppo``, or the program's); ``watch`` from ``init`` on,
+    ``close`` after the first update. With ``stop`` the last mark's step
+    raises ``Done``: the rest of the update is not needed."""
+
+    class Done(Exception):
+        pass
+
+    def __init__(self, module, marks=(3,), stop: bool = False):
+        self.module, self.marks, self.stop = module, tuple(marks), stop
+        self.n = self.marks[-1]
+        self.calls, self.losses = 0, []
+        self.grad, self.change = None, {}
+        self._adam = module.adam_step
+
+    def watch(self, trainer, model) -> None:
+        names = {id(p): k for k, p in model.named_parameters()}
+        self.trainer = trainer
+        self._loss = trainer.__dict__.get("_loss_fn")
+        loss_fn, adam = trainer._loss_fn, self._adam
+
+        def loss_kept(*a, **k):
+            total, aux = loss_fn(*a, **k)
+            if self.calls < self.n:
+                self.losses.append(float(total.detach()))
+            return total, aux
+
+        def step_kept(params, grads, *a, **k):
+            self.calls += 1
+            if self.calls == 1:
+                self.grad = _norms(names, params, grads)
+                self.p0 = [p.detach().clone() for p in params]
+            adam(params, grads, *a, **k)
+            if self.calls in self.marks:
+                self.change[self.calls] = _norms(names, params, [
+                    p.detach() - p0 for p, p0 in zip(params, self.p0)])
+            if self.calls == self.n:
+                del self.p0
+                if self.stop:
+                    raise FirstSteps.Done
+
+        trainer._loss_fn = loss_kept
+        self.module.adam_step = step_kept
+
+    def close(self) -> None:
+        self.module.adam_step = self._adam
+        if self._loss is None:
+            del self.trainer._loss_fn
+        else:
+            self.trainer._loss_fn = self._loss
+
+    def reading(self, ranks: int = 1) -> list:
+        """Per rank: its losses of the steps, the gradient norms and the
+        change norms at each mark; a trainer that did the ranks' shares in
+        one process (``ranks``) gives each rank its own share's losses."""
+        return [{"losses": self.losses[r::ranks], "grad": self.grad,
+                 "change": dict(self.change)} for r in range(ranks)]
+
+
+def _norms(names, params, tensors) -> Dict[str, float]:
+    return {names[id(p)]: float(torch.linalg.vector_norm(t.double()))
+            for p, t in zip(params, tensors)}
 
 
 def leaves(model) -> Dict[str, torch.Tensor]:
@@ -125,16 +201,32 @@ def snapshot(trainer, ts, epochs: int, keep_rollout_on=None):
                         first["last_value"], lr1, metrics1)
 
 
+def first_rollout(params: Dict[str, Any], seed: int, device,
+                  ranks: int = 1):
+    """The reference's own first rollout from ``seed``, and nothing of the
+    update: (trainer, its state from ``init``, the rollout's fields,
+    bootstrap values). The rollout leaves the parameters as they were, so
+    ``replay`` can start from the same trainer and state (``start``)."""
+    trainer = build(params, device, ranks)
+    ts0 = trainer.init(seed)
+    _, traj, last_value = trainer.rollout(ts0)
+    return trainer, ts0, traj._asdict(), last_value
+
+
 def replay(params: Dict[str, Any], seed: int, device, rollout: Dict[str, Any],
-           last_value: torch.Tensor) -> Snapshot:
+           last_value: torch.Tensor, start=None) -> Snapshot:
     """The reference's first epoch from ``seed`` with its rollout replaced
     by another's (``Snapshot.rollout``, ``last_value``): its GAE, running
     stats, dataset and update on that rollout. This follows the program
     a step from the program's own rollout, where a rounding difference
     can flip an env's exit and part its trajectory from the reference's
-    own; the rollout itself is compared against the reference's own."""
-    trainer = build(params, device)
-    ts0 = trainer.init(seed)
+    own; the rollout itself is compared against the reference's own.
+    ``start`` = (trainer, state) from ``first_rollout`` saves a build and
+    an ``init``."""
+    if start is None:
+        trainer = build(params, device)
+        start = trainer, trainer.init(seed)
+    trainer, ts0 = start
     traj = ppo_mod.Rollout(**_copy(rollout, device))
     trainer.rollout = lambda ts: (ts, traj, _copy(last_value, device))
     return snapshot(trainer, ts0, 1)[1]
@@ -178,17 +270,24 @@ def plant_half_batch(trainer) -> None:
 
 
 def follow(params: Dict[str, Any], seed: int, epochs: int, device,
-           tf32: bool = False, fault=None) -> Snapshot:
+           tf32: bool = False, fault=None, ranks: int = 1,
+           steps: FirstSteps = None) -> Snapshot:
     """The reference's first ``epochs`` epochs from ``seed``; with
     ``tf32`` its float32 products run in TF32 (the control); ``fault``
-    plants a fault (``plant_half_batch``) for the control readings."""
-    trainer = build(params, device)
+    plants a fault (``plant_half_batch``) for the control readings;
+    ``ranks`` as in ``build``; ``steps`` watches the first update."""
+    trainer = build(params, device, ranks)
     if fault is not None:
         fault(trainer)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     try:
-        return snapshot(trainer, trainer.init(seed), epochs)[1]
+        ts = trainer.init(seed)
+        if steps is not None:
+            steps.watch(trainer, ts.model)
+        return snapshot(trainer, ts, epochs)[1]
     finally:
+        if steps is not None:
+            steps.close()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

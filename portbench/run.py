@@ -25,10 +25,13 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 # build caches inside the checkout, at fixed paths: the program's nvcc
-# builds go to build/torch_kernels (kernels/build.py)
+# builds go to build/torch_kernels (kernels/build.py); torch's own
+# runtime-compiled kernels to build/torch_kernel_cache
 for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
-                 ("TRITON_CACHE_DIR", "triton")):
+                 ("TRITON_CACHE_DIR", "triton"),
+                 ("PYTORCH_KERNEL_CACHE_PATH", "torch_kernel_cache")):
     os.environ[var] = str(ROOT / "build" / sub)
+    os.makedirs(os.environ[var], exist_ok=True)
 os.environ["USE_FLAX"] = "0"
 sys.path.insert(0, str(ROOT))
 
@@ -47,14 +50,8 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     from portbench import harness
     w = harness.cell(args.workload)
+    driver = harness.driver(w["traffic_file"]["kind"])
     harness.require_cards(w["chips"])
-    kind = w["traffic_file"]["kind"]
-    if kind == "train":
-        from portbench.drivers import train as driver
-    elif kind == "sim":
-        from portbench.drivers import sim as driver
-    else:
-        raise SystemExit(f"traffic kind {kind!r} has no driver")
     res = driver.run(w, args.seed, args.seconds, bool(args.trace), T_START)
 
     found = harness.banned_modules()

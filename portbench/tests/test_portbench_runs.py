@@ -51,10 +51,10 @@ def test_the_reference_imports_nothing_of_the_program():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def _run(cwd, extra_env=None):
+def _run(cwd, extra_env=None, workload="hovering.sim"):
     env = dict(os.environ, **(extra_env or {}))
     return subprocess.run(
-        [sys.executable, "portbench/run.py", "--workload", "hovering.sim",
+        [sys.executable, "portbench/run.py", "--workload", workload,
          "--seed", "3000000000", "--seconds", "1", "--trace", "0"],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
 
@@ -70,6 +70,16 @@ def test_too_few_cards_refused():
     with pytest.raises(SystemExit):
         harness.require_cards(torch.cuda.device_count() + 1
                               if torch.cuda.is_available() else 1)
+
+
+@pytest.mark.cuda
+def test_one_card_for_a_cell_over_ranks_gives_no_result():
+    """On the card: the four-card cell with one card visible."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    out = _run(ROOT, {"CUDA_VISIBLE_DEVICES": "0"}, "planning.train.4gpu")
+    assert out.returncode != 0
+    assert '"correct"' not in out.stdout
 
 
 @pytest.mark.cuda

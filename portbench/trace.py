@@ -82,15 +82,7 @@ class Reading:
 
     def busy_s(self) -> float:
         """Seconds in which some device event ran (their union)."""
-        total, end = 0.0, None
-        for s, e, _ in self.events:
-            if end is None or s >= end:
-                total += e - s
-                end = e
-            elif e > end:
-                total += e - end
-                end = e
-        return total * 1e-6
+        return union_s(self.events)
 
     def device_ops(self) -> List[list]:
         by: Dict[str, float] = {}
@@ -123,3 +115,17 @@ class Reading:
     def breakdown(self) -> dict:
         return {"device_ops": self.device_ops(),
                 "idle_gaps": self.idle_gaps()}
+
+
+def union_s(events) -> float:
+    """Seconds covered by the union of events (start us, end us, name),
+    sorted by start."""
+    total, end = 0.0, None
+    for s, e, _ in events:
+        if end is None or s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total * 1e-6
