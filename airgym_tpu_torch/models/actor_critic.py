@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from airgym_tpu_torch.experiments import fused_cnn
+from airgym_tpu_torch.rl import profiling
 
 CNN_IMPLS = ("auto", "xla", "pallas")
 IMAGE_ENCODERS = (None, "cnn", "vae", "resnet")
@@ -298,11 +299,13 @@ class ActorCritic(nn.Module):
 
     def encode_image(self, img: torch.Tensor, obs_rms=None) -> torch.Tensor:
         """Camera frames [B, 1, W, H] (any float dtype) -> features; the
-        per-pixel normalisation runs in float32."""
+        per-pixel normalisation runs in float32. The encoder's call is the
+        ``encode`` span (rl/profiling.py)."""
         img = img.to(torch.float32)
         if obs_rms is not None:
             img = obs_rms["image"].normalize(img)
-        return self.encoder(img)
+        with profiling.span("encode"):
+            return self.encoder(img)
 
     def encode(self, obs, obs_rms=None):
         """-> (MLP input after normalization, pre-normalization vector,

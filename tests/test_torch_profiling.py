@@ -174,11 +174,16 @@ def _hovering():
     return fused_ppo.FusedHoveringPPO(task, cfg)
 
 
-def _planning():
+def _planning(image_encoder="cnn"):
     task = tenvs.make_task("planning", num_envs=8, device="cpu",
                            cam_width=32, cam_height=16)
     cfg = tppo.PPOConfig(horizon=8, minibatch_size=32, mini_epochs=2)
-    return tppo.PPO(task, cfg)
+    return tppo.PPO(task, cfg,
+                    network_kw={"image_encoder": image_encoder})
+
+
+def _planning_resnet():
+    return _planning("resnet")
 
 
 EPOCH_TREE = [("epoch", None), ("rollout", "epoch"), ("gae", "epoch"),
@@ -205,16 +210,21 @@ def test_span_tree_of_the_plain_image_epoch_one_minibatch_per_step(
     rec = profiling.stop()
     steps = tr.cfg.mini_epochs * tr.num_minibatches
     assert steps == 4
-    one = EPOCH_TREE + [("minibatch", "update"), ("loss", "minibatch"),
-                        ("backward", "minibatch"),
-                        ("adam", "minibatch")] * steps
+    # ``encode`` (the encoder's call) in the rollout: the first frame's
+    # features, each of the two renders' and the bootstrap value's; and
+    # once in each minibatch's loss, over the window's unique frames
+    one = EPOCH_TREE[:2] + [("encode", "rollout")] * 4 + EPOCH_TREE[2:] \
+        + [("minibatch", "update"), ("loss", "minibatch"),
+           ("encode", "loss"), ("backward", "minibatch"),
+           ("adam", "minibatch")] * steps
     got = [(n, p) for n, p, _ in tree(rec)]
     assert got == one + one
     assert [r.root_id for r in rec] == [0] * len(one) + [1] * len(one)
 
 
-@pytest.mark.parametrize("make", [_hovering, _planning],
-                         ids=["fused_hovering", "plain_image"])
+@pytest.mark.parametrize("make", [_hovering, _planning, _planning_resnet],
+                         ids=["fused_hovering", "plain_image",
+                              "plain_image_resnet"])
 def test_an_epoch_traced_equals_one_untraced_to_the_bit(make):
     tr = make()
     out = []
