@@ -31,6 +31,7 @@ starts at exactly 1; its keys are ``logstd.weight`` / ``logstd.bias``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -306,6 +307,40 @@ class ActorCritic(nn.Module):
             img = obs_rms["image"].normalize(img)
         with profiling.span("encode"):
             return self.encoder(img)
+
+    def frozen_head(self) -> Optional[nn.Module]:
+        """The trained head the image encoder declares (``head``, the
+        module its forward applies last: ResNet-18's ``fc``, the VAE's
+        identity) where every other parameter of the encoder is frozen,
+        else None: no encoder, no head declared (the CNN trains end to
+        end), or more of it trains. The head's input is then a fixed
+        function of the frames and the image stats."""
+        head = getattr(self.encoder, "head", None)
+        if head is None:
+            return None
+        own = {id(p) for p in head.parameters()}
+        if any(p.requires_grad for p in self.encoder.parameters()
+               if id(p) not in own):
+            return None
+        return head
+
+    @contextlib.contextmanager
+    def keep_head_input(self, store: dict, key):
+        """In the block, ``encode_image`` keeps the input of the frozen
+        head (``frozen_head``) as ``store[key]``."""
+        handle = self.frozen_head().register_forward_pre_hook(
+            lambda _, args: store.__setitem__(key, args[0]))
+        try:
+            yield
+        finally:
+            handle.remove()
+
+    def encode_head(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The frozen head's kept input (``keep_head_input``) -> the
+        features ``encode_image`` gave for it: the head alone, the
+        ``encode_hit`` span."""
+        with profiling.span("encode_hit"):
+            return self.encoder.head(pooled)
 
     def encode(self, obs, obs_rms=None):
         """-> (MLP input after normalization, pre-normalization vector,

@@ -91,6 +91,12 @@ class ResNet18Encoder(nn.Module):
             out.append(torch.mean(y, dim=(2, 3)))
         return torch.cat(out)
 
+    @property
+    def head(self) -> nn.Module:
+        """The trained part, applied last: the frozen backbone's pooled
+        features are its input (``ActorCritic.frozen_head``)."""
+        return self.fc
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.backbone(x))
 

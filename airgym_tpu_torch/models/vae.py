@@ -168,18 +168,21 @@ class VAE(nn.Module):
 class VAEEncoder(nn.Module):
     """The RL side's frozen encoder: the VAE encoder's means. Only the
     encoder is held (the policy never runs the decoder); its weights have
-    ``requires_grad`` off and run under ``torch.no_grad()``."""
+    ``requires_grad`` off and run under ``torch.no_grad()``. Nothing of it
+    trains, so its trained head (``head``, ``ActorCritic.frozen_head``) is
+    the identity."""
 
     def __init__(self, latent_dim: int = 64,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.latent_dim = latent_dim
         self.encoder = ImgEncoder(latent_dim, generator)
+        self.head = nn.Identity()
         self.requires_grad_(False)
 
     @torch.no_grad()
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        return self.encoder(to_image_res(img))[:, :self.latent_dim]
+        return self.head(self.encoder(to_image_res(img))[:, :self.latent_dim])
 
 
 def clean_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:

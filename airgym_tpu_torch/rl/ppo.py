@@ -27,9 +27,15 @@ only the unique frames, in bfloat16. Minibatches gather their
 (frame, env) pairs from a window of envs (``unique_window``); without
 dedup the per-step images stay in rollout layout [H, N, ...] and each
 minibatch cuts its window out of them (``_mb_from_scan_layout``).
+Where the encoder is frozen but for a trained head it declares
+(``ActorCritic.frozen_head``: ResNet-18's ``fc``, the VAE's identity),
+the input of the head is the same for a window in every mini-epoch, so
+``update`` keeps it from the first and the later ones run the head alone
+on it (``ActorCritic.encode_head``, the ``encode_hit`` span).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -461,9 +467,15 @@ class PPO:
         a2c_continuous.py:299-369)."""
         cfg = self.cfg
         obs = mb["obs"]
-        if isinstance(obs, dict) and "image_unique" in obs:
+        feat_u = None
+        if isinstance(obs, dict) and "pooled_unique" in obs:
+            # a later mini-epoch of a frozen encoder: its head alone on
+            # the head's input that the first kept (``update``)
+            feat_u = model.encode_head(obs["pooled_unique"])
+        elif isinstance(obs, dict) and "image_unique" in obs:
             # frame dedup: encode each unique frame once, gather per sample
             feat_u = model.encode_image(obs["image_unique"], obs_rms)
+        if feat_u is not None:
             obs = {"observation": obs["observation"],
                    "features": feat_u[obs["feat_index"]]}
         mu, sigma, value = model(obs, obs_rms)
@@ -525,15 +537,22 @@ class PPO:
     def unique_window(self, frames: torch.Tensor, frame_idx: torch.Tensor,
                       k: int, mb_size: int, rank: Optional[int] = None):
         """Unique frames of a rank's share of minibatch k [F * me, ...]
-        and each sample's index into them: sample j = n * H + h reads
-        frame frame_idx[h] of env n, at f * me + (n - e0)."""
+        and each sample's index into them (``feat_index``)."""
+        me, e0 = self._env_window(*self._share(k, mb_size, rank))
+        win = frames[:, e0:e0 + me]
+        img_u = win.reshape((frames.shape[0] * me,) + frames.shape[2:])
+        return img_u, self.feat_index(frame_idx, k, mb_size, rank)
+
+    def feat_index(self, frame_idx: torch.Tensor, k: int, mb_size: int,
+                   rank: Optional[int] = None) -> torch.Tensor:
+        """Each sample of a rank's share of minibatch k as an index into
+        its window's unique frames: sample j = n * H + h reads frame
+        frame_idx[h] of env n, at f * me + (n - e0)."""
         H = self.cfg.horizon
         start, length = self._share(k, mb_size, rank)
         me, e0 = self._env_window(start, length)
-        win = frames[:, e0:e0 + me]
-        img_u = win.reshape((frames.shape[0] * me,) + frames.shape[2:])
-        j = start + torch.arange(length, device=frames.device)
-        return img_u, frame_idx[j % H] * me + (j // H - e0)
+        j = start + torch.arange(length, device=frame_idx.device)
+        return frame_idx[j % H] * me + (j // H - e0)
 
     def _mb_from_scan_layout(self, img: torch.Tensor, k: int, mb_size: int,
                              rank: Optional[int] = None):
@@ -590,6 +609,12 @@ class PPO:
         v = [ts.adam["v"][k].clone() for k in names]
         count = ts.adam["count"].clone()
         lr = ts.lr.clone()
+        # a frozen encoder's head input (``ActorCritic.frozen_head``) for
+        # a window is the same in every mini-epoch: the frames, the image
+        # stats and the frozen weights hold through the update. The first
+        # keeps it by (minibatch, rank share), the later ones read it back
+        keep = frames is not None and model.frozen_head() is not None
+        memo: Dict[tuple, torch.Tensor] = {}
         for _ in range(cfg.mini_epochs):
             rows = []
             for k in range(nmb):
@@ -610,7 +635,11 @@ class PPO:
                             if isinstance(obs, dict):
                                 mob = {key: val[sl]
                                        for key, val in obs.items()}
-                                if frames is not None:
+                                if (k, r) in memo:
+                                    mob["pooled_unique"] = memo[(k, r)]
+                                    mob["feat_index"] = self.feat_index(
+                                        frame_idx, k, mb_size, r)
+                                elif frames is not None:
                                     mob["image_unique"], mob["feat_index"] \
                                         = self.unique_window(
                                             frames, frame_idx, k, mb_size, r)
@@ -621,8 +650,11 @@ class PPO:
                                 mob = obs[sl]
                             mb["obs"], mb["mus"], mb["sigmas"] = \
                                 mob, mus[sl], sigmas[sl]
-                            loss, aux = self._loss_fn(model, rms,
-                                                      ts.value_rms, mb)
+                            with (model.keep_head_input(memo, (k, r))
+                                  if keep and (k, r) not in memo
+                                  else contextlib.nullcontext()):
+                                loss, aux = self._loss_fn(model, rms,
+                                                          ts.value_rms, mb)
                             if self.shares > 1:
                                 loss = loss / self.shares
                         with profiling.span("backward"):

@@ -3,7 +3,8 @@
 ``span(name)`` marks a phase of the program (``rl/ppo.PPO.train_epoch``'s
 ``epoch`` and its phases, the plain update's ``minibatch`` steps, the
 fused rollout's ``bookkeeping``, ``ops/fused_hovering.rollout_fused``,
-the image encoder's call ``encode`` in ``models/actor_critic``).
+the image encoder's call ``encode`` in ``models/actor_critic``, and
+``encode_hit``, a frozen encoder's head alone, beside it).
 Between ``start()`` and ``stop()`` each span appends one ``Record`` to a
 list in memory, stamped with ``time.time_ns()``: the clock that
 ``torch.profiler`` (kineto) stamps its host events with and converts the

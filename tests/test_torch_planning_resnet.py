@@ -120,6 +120,52 @@ def test_tiny_cell_is_correct_and_leaves_the_backbone(monkeypatch):
                                snap.p1["actor_resnet.fc.weight"])
 
 
+def test_update_keeping_the_backbone_equals_the_reference_to_the_bit():
+    """One update at the tiny cell's sizes (8 envs, horizon 8, minibatch
+    32, 2 mini-epochs), the port's on its own first rollout and the plain
+    reference's replayed on it: the same dataset, and after the update
+    the same parameters, Adam moments, step count, lr and metrics, to the
+    bit. The port runs the backbone once per window and the ``fc`` alone
+    in the later mini-epoch (``encode_hit``); the reference re-encodes in
+    every minibatch."""
+    from airgym_tpu_torch.rl import profiling
+    from airgym_tpu_torch.rl import runner as runner_mod
+    _, params = _params(**_tiny.SIZES["planning.train"])
+    runner = runner_mod.Runner().load({"params": params})
+    _, port, _ = runner.build({"seed": 5, "device": "cpu"})
+    ref = ref_train.build(params, CPU)
+    got = {}
+    for name, tr in (("port", port), ("ref", ref)):
+        def kept(ts, dataset, _name=name, _update=tr.update):
+            got[_name] = (dataset,) + _update(ts, dataset)
+            return got[_name][1:]
+        tr.update = kept
+    profiling.start()
+    try:
+        snap = ref_train.snapshot(port, port.init(5), 1)[1]
+    finally:
+        rec = profiling.stop()
+    ref_train.replay(params, 5, CPU, snap.rollout, snap.last_value,
+                     start=(ref, ref.init(5)))
+    assert [r.name for r in rec].count("encode_hit") == \
+        port.num_minibatches * (port.cfg.mini_epochs - 1) == 2
+
+    def equal(a, b, at):
+        if isinstance(a, dict):
+            assert set(a) == set(b), at
+            for k in a:
+                equal(a[k], b[k], f"{at}.{k}")
+        else:
+            assert torch.equal(a, b), at
+    (d_p, ts_p, m_p), (d_r, ts_r, m_r) = got["port"], got["ref"]
+    equal(d_p, d_r, "dataset")
+    equal(dict(ts_p.model.named_parameters()),
+          dict(ts_r.model.named_parameters()), "params")
+    equal(ts_p.adam, ts_r.adam, "adam")
+    equal(ts_p.lr, ts_r.lr, "lr")
+    equal(m_p, m_r, "metrics")
+
+
 def test_tiny_cell_with_half_batch_is_not_correct(monkeypatch):
     """Each minibatch's loss over its first half alone, planted in the
     program: the cell's limits fail it."""

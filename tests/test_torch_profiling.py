@@ -166,6 +166,24 @@ def test_readers_read_nothing_without_a_card_or_a_program_reading():
         assert harness.reader(name)({"spans": None}) is None
 
 
+def test_encode_hit_share_reads_hits_over_minibatches():
+    """``encode_hit_share.resnet``: 4 ``encode_hit`` spans in 5
+    minibatches read 80%; none, or no program reading, read nothing."""
+    from portbench import harness
+    read = harness.reader("encode_hit_share.resnet")
+    recs = [R("epoch", -1, 0, 100)]
+    for i in range(5):
+        mb = len(recs)
+        recs += [R("minibatch", 0, 20 * i, 20 * i + 15),
+                 R("loss", mb, 20 * i, 20 * i + 5)]
+        if i:
+            recs.append(R("encode_hit", mb + 1, 20 * i + 1, 20 * i + 2))
+    assert read({"program": pt.Program(recs, 0, [], [])}) == 80.0
+    misses = [r for r in recs if r.name != "encode_hit"]
+    assert read({"program": pt.Program(misses, 0, [], [])}) is None
+    assert read({"program": None}) is None
+
+
 # -- the trainers' span trees -----------------------------------------------
 
 def _hovering():
@@ -247,3 +265,33 @@ def test_an_epoch_traced_equals_one_untraced_to_the_bit(make):
                  (a.adam["count"], b.adam["count"])):
         assert torch.equal(x, y)
     assert a.epoch == b.epoch == 1
+
+
+@pytest.mark.parametrize("image_encoder", ["resnet", "vae", "cnn"])
+def test_a_frozen_encoder_runs_once_a_window_in_an_update(image_encoder,
+                                                          tracing):
+    """In one update at 2 mini-epochs a frozen encoder (ResNet-18 but its
+    ``fc``, the VAE whole) runs once per minibatch window and its head
+    alone in the later mini-epoch (``encode_hit``); the CNN, which
+    trains, runs in every minibatch."""
+    tr = _planning(image_encoder)
+    ts = tr.init(3)
+    enc, update = ts.model.encoder, tr.update
+    calls = []
+    fwd = enc.forward
+    enc.forward = lambda x: calls.append(x.shape[0]) or fwd(x)
+
+    def counted(ts, dataset):
+        calls.clear()                 # the rollout's calls
+        return update(ts, dataset)
+    tr.update = counted
+    tr.train_epoch(ts)
+    rec = profiling.stop()
+    nmb, epochs = tr.num_minibatches, tr.cfg.mini_epochs
+    assert nmb == 2 and epochs == 2
+    hits = [(n, p) for n, p, _ in tree(rec) if n == "encode_hit"]
+    frozen = image_encoder != "cnn"
+    assert ts.model.frozen_head() is (enc.head if frozen else None)
+    assert len(calls) == (nmb if frozen else epochs * nmb)
+    assert hits == [("encode_hit", "loss")] * ((epochs - 1) * nmb
+                                               if frozen else 0)

@@ -30,6 +30,7 @@ from airgym_tpu_torch import cli
 from airgym_tpu_torch.models import actor_critic as tac
 from airgym_tpu_torch.rl import checkpoint as tckpt
 from airgym_tpu_torch.rl import ppo as tppo
+from airgym_tpu_torch.rl import profiling
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
 from test_torch_ppo import close_tensors, jax_named, to_jax, to_torch
 
@@ -64,18 +65,18 @@ def model_pair(dtype):
     return jm, params, tm
 
 
-def obs_and_stats(seed=5, b=12):
+def obs_and_stats(seed=5, b=12, feat=30):
     rng = np.random.default_rng(seed)
     img = rng.uniform(0.0, 3.0, (b, 1, W_, H_)).astype(np.float32)
     vec = rng.normal(0, 1, (b, 16)).astype(np.float32)
     stat_img = rng.uniform(0.0, 3.0, (64, 1, W_, H_)).astype(np.float32)
-    stat_vec = rng.normal(0.5, 2.0, (64, 46)).astype(np.float32)
+    stat_vec = rng.normal(0.5, 2.0, (64, 16 + feat)).astype(np.float32)
     j_rms = {"image": JaxRMS.create((1, W_, H_)).update(jnp.asarray(stat_img)),
-             "observation": JaxRMS.create((46,)).update(
+             "observation": JaxRMS.create((16 + feat,)).update(
                  jnp.asarray(stat_vec))}
     t_rms = {"image": RunningMeanStd.create((1, W_, H_)).update(
                  torch.from_numpy(stat_img)),
-             "observation": RunningMeanStd.create((46,)).update(
+             "observation": RunningMeanStd.create((16 + feat,)).update(
                  torch.from_numpy(stat_vec))}
     return img, vec, j_rms, t_rms
 
@@ -156,11 +157,11 @@ def test_from_jax_and_pth_both_ways(tmp_path):
     assert meta2["epoch"] == 7
 
 
-def vision_pair(cnn_impl="auto"):
+def vision_pair(cnn_impl="auto", image_encoder="cnn"):
     """The JAX and the port's Planning trainers at one state; ``cnn_impl``
     is the port's CNN path, 'pallas' against the JAX package's
     'pallas_interpret'."""
-    net = dict(image_encoder="cnn", cnn_compute_dtype=None)
+    net = dict(image_encoder=image_encoder, cnn_compute_dtype=None)
     jimpl = "pallas_interpret" if cnn_impl == "pallas" else cnn_impl
     jt = jppo.PPO(jenvs.make_task("planning", num_envs=N, **CAM),
                   jppo.PPOConfig(**SMALL),
@@ -170,7 +171,8 @@ def vision_pair(cnn_impl="auto"):
                   tppo.PPOConfig(**SMALL),
                   network_kw=dict(net, cnn_impl=cnn_impl))
     ts_j = jt.init(jax.random.PRNGKey(0))
-    _, _, j_rms, _ = obs_and_stats(seed=7)
+    feat = 64 if image_encoder == "vae" else 30     # the defaults' widths
+    _, _, j_rms, _ = obs_and_stats(seed=7, feat=feat)
     ts_j = ts_j._replace(obs_rms=j_rms)
     ck = tckpt.from_jax(host(ts_j.params), host(ts_j.obs_rms),
                         host(ts_j.value_rms),
@@ -198,10 +200,18 @@ def vision_dataset(seed=8):
     return d, frames
 
 
-@pytest.mark.parametrize("cnn_impl", ["auto", "pallas"])
-def test_vision_loss_and_update_match_jax(cnn_impl):
-    jt, tt, ts_j, ts_t = vision_pair(cnn_impl)
-    assert ts_t.model.actor_cnn.impl == cnn_impl
+@pytest.mark.parametrize("cnn_impl,image_encoder", [
+    pytest.param("auto", "cnn", id="auto"),
+    pytest.param("pallas", "cnn", id="pallas"),
+    pytest.param("auto", "resnet", id="resnet"),
+    pytest.param("auto", "vae", id="vae")])
+def test_vision_loss_and_update_match_jax(cnn_impl, image_encoder):
+    """The CNN, and the frozen ResNet-18 and VAE, whose update keeps the
+    head's input from the first mini-epoch and runs the head alone on it
+    in the second (``encode_hit``), where the JAX package re-encodes."""
+    jt, tt, ts_j, ts_t = vision_pair(cnn_impl, image_encoder)
+    if image_encoder == "cnn":
+        assert ts_t.model.actor_cnn.impl == cnn_impl
     assert tt.frame_dedup and jt.frame_dedup and tt.num_frames == 3
     d, frames = vision_dataset()
     dj, dt = to_jax(d), to_torch(d)
@@ -237,7 +247,12 @@ def test_vision_loss_and_update_match_jax(cnn_impl):
 
     # one whole update phase
     ts_j2, m_j = jax.jit(jt.update)(ts_j, dj)
-    ts_t2, m_t = tt.update(ts_t, dt)
+    profiling.start()
+    try:
+        ts_t2, m_t = tt.update(ts_t, dt)
+    finally:
+        hits = [r.name for r in profiling.stop()].count("encode_hit")
+    assert hits == (0 if image_encoder == "cnn" else 4)
     params_t = dict(ts_t2.model.named_parameters())
     ref = jax_named(ts_j2.params)
     close_tensors({k: v for k, v in ref.items() if k in params_t}, params_t)
