@@ -115,7 +115,7 @@ def _check(packed: torch.Tensor, pack: PolicyPack, task: str) -> None:
         raise NotImplementedError(
             f"fused rollout task {task!r} has no fused kernel (tasks: "
             f"{sorted(_TASK_OBS)}); other tasks train with the plain "
-            f"rl/ppo.PPO rollout (ROADMAP.md queue A item 7b)")
+            f"rl/ppo.PPO rollout (ROADMAP.md queue F item 3)")
     obs = _TASK_OBS[task]
     if packed.dtype != torch.float32 or packed.dim() != 2 \
             or packed.shape[0] != _F:

@@ -7,10 +7,15 @@ the running stats and the dataset through ``ops/epoch_prep.epoch_prep``
 (csrc/epoch_prep.cu) and the whole update phase through
 ``ops/fused_update.fused_update`` (csrc/fused_update.cu). On CPU tensors
 the rollout and update ops run their plain versions, and GAE, the stats
-and the dataset stay rl/ppo.py's PyTorch (see ``_prep_engages``).
-``FusedBalloonPPO`` and ``FusedTrackingPPO`` change only the task hooks:
-how the env state is packed and unpacked, the bootstrap observation and
-the per-step success flags.
+and the dataset stay rl/ppo.py's PyTorch. ``FusedBalloonPPO`` and
+``FusedTrackingPPO`` change only the task hooks: how the env state is
+packed and unpacked, the bootstrap observation and the per-step success
+flags.
+
+What runs is decided once, when the trainer is built: ``refusal`` is the
+one rule of the tasks, modes, env counts and nets the kernels cover, which
+``Runner.build`` and ``__init__`` both apply, and ``__init__`` sets
+``update_kernel`` and ``prep_kernels`` from the config, ranks and device.
 
 On several ranks (parallel/dist.py) each rank's rollout kernel runs its
 block of the envs with the seed offset by its first tile, so the ranks'
@@ -36,40 +41,71 @@ from airgym_tpu_torch.rl import profiling
 
 
 class FusedHoveringPPO(ppo_mod.PPO):
-    """Requirements: the trainer's task (``fused_task``), ctl_mode
-    'rate', num_envs % 1024 == 0, the shared-trunk fixed-sigma
-    [64,128,64] elu network."""
+    """The fused trainer of ``fused_task`` for the configs ``refusal``
+    lets through."""
 
     fused_task = "hovering"
 
-    def __init__(self, task, cfg=ppo_mod.PPOConfig(), network_kw=None,
-                 group=None, shares=None):
-        if task.task_name != self.fused_task or task.cfg.ctl_mode != "rate":
-            raise NotImplementedError(
-                f"{type(self).__name__} covers {self.fused_task} / rate "
-                f"only, got {task.task_name} / {task.cfg.ctl_mode}: its "
-                f"kernels run the rate cascade; other modes train with the "
-                f"plain rl/ppo.PPO, as the runner picks it")
+    @classmethod
+    def refusal(cls, task, network_kw=None) -> Optional[str]:
+        """None where the kernels cover ``task`` (on several ranks, this
+        rank's block of the envs) and the net ``network_kw``, else why
+        not: the task and ctl_mode 'rate', num_envs % 1024 == 0, the
+        shared-trunk fixed-sigma [64,128,64] elu net."""
+        if task.task_name != cls.fused_task or task.cfg.ctl_mode != "rate":
+            return (f"{cls.__name__} covers {cls.fused_task} / rate only, "
+                    f"got {task.task_name} / {task.cfg.ctl_mode}: its "
+                    f"kernels run the rate cascade")
         if task.cfg.num_envs % fr.TILE:
-            raise NotImplementedError(
-                f"num_envs={task.cfg.num_envs} is not a multiple of "
-                f"{fr.TILE}: other counts train with the plain rl/ppo.PPO "
-                f"(ROADMAP.md queue A item 7b), as the runner picks it")
+            return (f"num_envs={task.cfg.num_envs} is not a multiple of "
+                    f"{fr.TILE} (ROADMAP.md queue F item 3)")
         net = dict(network_kw or {})
         if tuple(net.get("units", fr.UNITS)) != fr.UNITS \
                 or net.get("activation", "elu") != "elu" \
                 or net.get("separate") or not net.get("fixed_sigma", True):
+            return (f"the fused kernels run the [64,128,64] elu shared-trunk "
+                    f"fixed-sigma net, got {net} (ROADMAP.md queue F item "
+                    f"3)")
+        return None
+
+    def __init__(self, task, cfg=ppo_mod.PPOConfig(), network_kw=None,
+                 group=None, shares=None):
+        reason = self.refusal(task, network_kw)
+        if reason is not None:
             raise NotImplementedError(
-                f"the fused kernels run the [64,128,64] elu shared-trunk "
-                f"fixed-sigma net, got {net}: other nets train with the "
-                f"plain rl/ppo.PPO (ROADMAP.md queue C, activations in the "
-                f"fused trainer), as the runner picks it")
+                f"{reason}; other configs train with the plain rl/ppo.PPO, "
+                f"as the runner picks it")
         self._motor_alpha = qd.motor_alpha(task.params)
         # the last rollout's record [H, OBS + 13, N], of which its Rollout
         # fields are views: _prepare's kernels read it in place
         self._record: Optional[torch.Tensor] = None
         super().__init__(task, cfg, network_kw=network_kw, group=group,
                          shares=shares)
+        # the reference's rules minus its TPU VMEM cap on the batch size; a
+        # multi-rank run and its one-process witness take the plain update
+        self.update_kernel = (self.world == 1 and not self.witness
+                              and not cfg.clip_value
+                              and not cfg.use_smooth_clamp
+                              and cfg.lr_schedule in ("adaptive", "fixed",
+                                                      "linear")
+                              and cfg.normalize_input)
+        # GAE, the stats and the dataset as csrc/epoch_prep.cu where the
+        # update kernel runs, with every normalisation the kernels apply
+        # (the bootstrap on time-outs is their flag), on the card; the CPU
+        # keeps rl/ppo.py's PyTorch, whose float32 advantage mean and std
+        # are the frozen reference's (portbench/reference) bit for bit
+        self.prep_kernels = (self.update_kernel and cfg.normalize_value
+                             and cfg.normalize_advantage
+                             and not cfg.normalize_rms_advantage
+                             and torch.device(self.device).type == "cuda")
+        self._kcfg = dict(e_clip=cfg.e_clip, critic_coef=cfg.critic_coef,
+                          bounds_coef=cfg.bounds_loss_coef,
+                          entropy_coef=cfg.entropy_coef,
+                          truncate_grads=cfg.truncate_grads,
+                          grad_norm=cfg.grad_norm,
+                          adaptive_lr=cfg.lr_schedule == "adaptive",
+                          kl_threshold=cfg.kl_threshold,
+                          min_lr=cfg.min_lr, max_lr=cfg.max_lr)
 
     # -- task hooks (overridden by the Balloon and Tracking trainers) -------
 
@@ -122,7 +158,7 @@ class FusedHoveringPPO(ppo_mod.PPO):
             neglogp=rec[:, k + 4], values=rec[:, k + 5], mus=mus,
             sigmas=sigma.expand(mus.shape), rewards=rewards, dones=dones,
             timeouts=rec[:, k + 12] > 0.5)
-        self._record = rec
+        self._record = rec if self.prep_kernels else None
 
         successes = self._fused_success(obs, rewards, dones)
         if (successes is None) != (ts.last_ep_success is None):
@@ -175,38 +211,8 @@ class FusedHoveringPPO(ppo_mod.PPO):
             last_ep_length=last_len, last_ep_success=last_suc)
         return ts, traj, last_value[:, 0], {"reward": torch.mean(rewards)}
 
-    def _can_fuse_update(self) -> bool:
-        # the reference's rules minus its TPU VMEM cap on the batch size
-        # (the net's shape is checked at construction); a multi-rank run
-        # and its one-process witness take the plain update
-        cfg = self.cfg
-        return (self.world == 1 and not self.witness
-                and not self.obs_is_dict
-                and not cfg.clip_value
-                and not cfg.use_smooth_clamp
-                and cfg.lr_schedule in ("adaptive", "fixed", "linear")
-                and cfg.normalize_input
-                and self.batch_size % self.num_minibatches == 0)
-
-    def _prep_supported(self) -> bool:
-        """GAE, the stats and the dataset can run as csrc/epoch_prep.cu:
-        where the update kernel runs, with every normalisation the kernels
-        apply (the bootstrap on time-outs is the kernel's flag)."""
-        cfg = self.cfg
-        return (self._can_fuse_update() and cfg.normalize_value
-                and cfg.normalize_advantage
-                and not cfg.normalize_rms_advantage)
-
-    def _prep_engages(self, traj) -> bool:
-        """The kernels run on the card. On the CPU, GAE, the stats and the
-        dataset stay rl/ppo.py's PyTorch, which takes the advantages' mean
-        and std in float32 as the benchmark's frozen reference
-        (portbench/reference) does, bit for bit in the CPU tests; there
-        are no launches to save there."""
-        return traj.values.is_cuda and self._prep_supported()
-
     def _prepare(self, ts: ppo_mod.TrainState, traj, last_value):
-        if not self._prep_engages(traj):
+        if not self.prep_kernels:
             return super()._prepare(ts, traj, last_value)
         rec, self._record = self._record, None
         if rec is None:
@@ -231,7 +237,7 @@ class FusedHoveringPPO(ppo_mod.PPO):
 
     def _dataset(self, ts, traj, values_m, returns_m, adv):
         dataset = super()._dataset(ts, traj, values_m, returns_m, adv)
-        if self._can_fuse_update():
+        if self.update_kernel:
             # the update kernel takes the normalised observations
             dataset["obs"] = ts.obs_rms.normalize(dataset["obs"])
         return dataset
@@ -239,24 +245,10 @@ class FusedHoveringPPO(ppo_mod.PPO):
     def update(self, ts: ppo_mod.TrainState, dataset):
         """The update kernel on the dataset of ``_prepare``, whose "obs"
         are normalised where it runs; else the plain update."""
-        if not self._can_fuse_update():
+        if not self.update_kernel:
             return super().update(ts, dataset)
-        cfg = self.cfg
-        if cfg.lr_schedule == "linear":
-            mul = max(0.0, 1.0 - ts.epoch / cfg.max_epochs)
-            ts = dataclasses.replace(ts, lr=torch.tensor(
-                max(cfg.min_lr, cfg.learning_rate * mul), dtype=torch.float32,
-                device=self.device))
-
+        ts = self._scheduled_lr(ts)
         params = dict(ts.model.named_parameters())
-        kcfg = dict(e_clip=cfg.e_clip, critic_coef=cfg.critic_coef,
-                    bounds_coef=cfg.bounds_loss_coef,
-                    entropy_coef=cfg.entropy_coef,
-                    truncate_grads=cfg.truncate_grads,
-                    grad_norm=cfg.grad_norm,
-                    adaptive_lr=cfg.lr_schedule == "adaptive",
-                    kl_threshold=cfg.kl_threshold,
-                    min_lr=cfg.min_lr, max_lr=cfg.max_lr)
         w2, m2, v2, lr2, t2, metrics = fu.fused_update(
             dataset["obs"], dataset["actions"], dataset["adv"],
             dataset["returns"], dataset["neglogp"], dataset["mus_init"],
@@ -264,7 +256,7 @@ class FusedHoveringPPO(ppo_mod.PPO):
             fu.pack_update(params), fu.pack_update(ts.adam["m"]),
             fu.pack_update(ts.adam["v"]), ts.lr.reshape(1),
             ts.adam["count"].reshape(1), nmb=self.num_minibatches,
-            mini_epochs=cfg.mini_epochs, cfg=kcfg)
+            mini_epochs=self.cfg.mini_epochs, cfg=self._kcfg)
 
         with torch.no_grad():
             for name, value in fu.unpack_update(w2).items():
@@ -318,3 +310,7 @@ class FusedTrackingPPO(FusedHoveringPPO):
     def _last_obs(self, env_state, root, generator):
         return self.task.observations(root, env_state.core.progress,
                                       generator)[0]
+
+
+FUSED_TRAINERS = {"hovering": FusedHoveringPPO, "balloon": FusedBalloonPPO,
+                  "tracking": FusedTrackingPPO}

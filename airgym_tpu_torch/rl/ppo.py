@@ -46,6 +46,7 @@ from airgym_tpu_torch.parallel import dist as pdist
 from airgym_tpu_torch.rl import losses
 from airgym_tpu_torch.rl import moving_stats as mstats
 from airgym_tpu_torch.rl import profiling
+from airgym_tpu_torch.rl import schedulers
 from airgym_tpu_torch.rl.running_stats import RunningMeanStd
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -567,6 +568,20 @@ class PPO:
         off = start - e0 * H
         return win[off:off + length]
 
+    def _scheduled_lr(self, ts: TrainState) -> TrainState:
+        """``ts`` with its epoch's lr under ``lr_schedule: linear``
+        (kl-independent, so once per epoch equals the reference's
+        per-minibatch application); other schedules keep ``ts.lr``."""
+        cfg = self.cfg
+        if cfg.lr_schedule != "linear":
+            return ts
+        lr, _ = schedulers.LinearScheduler(
+            start_lr=cfg.learning_rate, min_lr=cfg.min_lr,
+            max_steps=cfg.max_epochs).update(None, None, ts.epoch, ts.frame,
+                                             None)
+        return dataclasses.replace(ts, lr=torch.tensor(
+            lr, dtype=torch.float32, device=self.device))
+
     def update(self, ts: TrainState, dataset: Dict[str, Any]):
         """mini_epochs x contiguous minibatches of autograd + Adam steps,
         the mu / sigma write-back the KL of later mini-epochs reads, the
@@ -584,13 +599,7 @@ class PPO:
         cfg = self.cfg
         nmb = self.num_minibatches
         mb_size = self.batch_size // nmb
-        if cfg.lr_schedule == "linear":
-            # kl-independent, so once per epoch equals the reference's
-            # per-minibatch application
-            mul = max(0.0, 1.0 - ts.epoch / cfg.max_epochs)
-            ts = dataclasses.replace(ts, lr=torch.tensor(
-                max(cfg.min_lr, cfg.learning_rate * mul), dtype=torch.float32,
-                device=self.device))
+        ts = self._scheduled_lr(ts)
 
         dataset = dict(dataset)
         frames = dataset.pop("frames", None)

@@ -17,12 +17,11 @@ per-robot rate is capped near 1 / R), else the per-actor rate.
 ``config.viz_every_epochs`` dumps a short episode of the current policy
 to ``run_dir/viz/epoch_%06d`` (``utils/episode_viz``).
 
-The trainer is chosen as in the JAX runner: the fused trainer of the
-task when the YAML asks for it (``use_fused_rollout``) and the config is
-one its kernels cover (rate mode, a multiple of 1024 envs, the
-[64,128,64] elu shared-trunk fixed-sigma net), otherwise the plain
-``PPO`` (camera tasks, Balloon's shipped 64 envs, other control modes,
-other nets).
+The trainer is chosen as in the JAX runner: the task's fused trainer
+(``rl/fused_ppo.FUSED_TRAINERS``) when the YAML asks for it
+(``use_fused_rollout``) and its ``refusal``, the one rule of what the
+kernels cover, returns None; otherwise the plain ``PPO`` (camera tasks,
+Balloon's shipped 64 envs, other control modes, other nets).
 
 A ``vae:`` / ``resnet:`` block with a ``model_file`` grafts a pretrained
 encoder after ``trainer.init`` (``_maybe_load_pretrained_vae``), in train
@@ -54,13 +53,11 @@ import numpy as np
 import torch
 
 from airgym_tpu_torch import envs
-from airgym_tpu_torch.ops import fused_rollout as fr
 from airgym_tpu_torch.parallel import dist as pdist
 from airgym_tpu_torch.rl import checkpoint as ckpt
 from airgym_tpu_torch.rl import metrics as metrics_mod
 from airgym_tpu_torch.rl import ppo as ppo_mod
-from airgym_tpu_torch.rl.fused_ppo import (FusedBalloonPPO, FusedHoveringPPO,
-                                           FusedTrackingPPO)
+from airgym_tpu_torch.rl.fused_ppo import FUSED_TRAINERS
 
 LOGGED = ("mean_reward", "loss", "kl", "lr", "a_loss", "c_loss", "b_loss",
           "entropy", "clip_frac", "mean_ep_length", "reward_raw_per_step",
@@ -79,9 +76,6 @@ TAGS = {"losses/a_loss": "a_loss", "losses/c_loss": "c_loss",
         "diagnostics/explained_variance": "explained_variance",
         "info/success_rate": "success_rate",
         "info/env_success_rate": "env_success_rate"}
-
-FUSED_TRAINERS = {"hovering": FusedHoveringPPO, "balloon": FusedBalloonPPO,
-                  "tracking": FusedTrackingPPO}
 
 
 def network_kw_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -184,10 +178,10 @@ class Runner:
             if group is not None:
                 seed = pdist.broadcast_int(seed)
         device = args.get("device")
-        first, n_local, world = 0, num_envs, 1
+        first, n_local = 0, num_envs
         if group is not None:
-            world = group.world
-            first, n_local = pdist.env_shard(num_envs, group.rank, world)
+            first, n_local = pdist.env_shard(num_envs, group.rank,
+                                             group.world)
             if device is None:
                 device = f"cuda:{group.local_rank}"
             # the reference seeds each rank's global RNGs with seed + rank
@@ -205,14 +199,10 @@ class Runner:
                 f"env_config.use_image={use_image} contradicts task "
                 f"{task_name!r} (obs_is_dict={task.obs_is_dict})")
         network_kw = self.network_kw()
-        fused = (cfg.get("use_fused_rollout") and ctl_mode == "rate"
-                 and task_name in FUSED_TRAINERS
-                 and num_envs % (fr.TILE * world) == 0
-                 and tuple(network_kw.get("units", fr.UNITS)) == fr.UNITS
-                 and network_kw.get("activation", "elu") == "elu"
-                 and not network_kw.get("separate")
-                 and network_kw.get("fixed_sigma", True))
-        trainer_cls = FUSED_TRAINERS[task_name] if fused else ppo_mod.PPO
+        trainer_cls = FUSED_TRAINERS.get(task_name)
+        if not cfg.get("use_fused_rollout") or trainer_cls is None \
+                or trainer_cls.refusal(task, network_kw) is not None:
+            trainer_cls = ppo_mod.PPO
         trainer = trainer_cls(task, ppo_config_from_params(self.params),
                               network_kw=network_kw, group=group,
                               shares=args.get("shares"))

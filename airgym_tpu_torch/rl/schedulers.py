@@ -2,8 +2,10 @@
 reference lib/core/schedulers.py), as plain Python over (lr,
 entropy_coef, epoch, frame, kl).
 
-The trainer's own lr schedules stay in ``rl/ppo.py``; these are the
-library surface, the linear schedule included."""
+The trainers take their linear schedule from ``LinearScheduler``
+(``rl/ppo.PPO._scheduled_lr``); the adaptive one stays in the update
+(``rl/ppo.PPO.update`` and the update kernel), which applies it on the
+device's kl."""
 from __future__ import annotations
 
 import dataclasses

@@ -91,7 +91,7 @@ def card_sqrt(monkeypatch):
 def test_plain_matches_the_pytorch_path(obs, monkeypatch):
     tr, ts, rec, last_value = make_case(obs, 3 + obs)
     traj = rollout_of(tr, ts, rec)
-    assert not tr._prep_engages(traj)          # the CPU keeps PyTorch
+    assert not tr.prep_kernels                 # the CPU keeps PyTorch
     with monkeypatch.context() as m:
         card_sqrt(m)
         ts_t, values, returns, ds = tr._prepare(ts, traj, last_value)
@@ -166,8 +166,9 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
 
 def _through_the_plain_twin(monkeypatch):
     """The fused trainers' epochs take ops/epoch_prep.epoch_prep on the CPU
-    (its plain twin), as they take the kernels on the card; returns the
-    list that gains an entry a call."""
+    (its plain twin), as they take the kernels on the card: a fused
+    trainer is built as if its task were on the card, then runs on the
+    CPU. Returns the list that gains an entry a call."""
     calls = []
     plain = ep.epoch_prep
 
@@ -175,8 +176,17 @@ def _through_the_plain_twin(monkeypatch):
         calls.append(1)
         return plain(*a, **k)
     monkeypatch.setattr(ep, "epoch_prep", counted)
-    monkeypatch.setattr(fused_ppo.FusedHoveringPPO, "_prep_engages",
-                        lambda self, traj: self._prep_supported())
+    init = fused_ppo.FusedHoveringPPO.__init__
+
+    def as_on_the_card(self, task, *a, **k):
+        device, task.device = task.device, torch.device("cuda")
+        try:
+            init(self, task, *a, **k)
+        finally:
+            task.device = device
+        self.device = device
+    monkeypatch.setattr(fused_ppo.FusedHoveringPPO, "__init__",
+                        as_on_the_card)
     return calls
 
 
@@ -185,9 +195,10 @@ def _through_the_plain_twin(monkeypatch):
     dict(normalize_rms_advantage=True), dict(normalize_input=False),
     dict(clip_value=True), "witness", "world"])
 def test_which_fused_trainers_take_the_kernels(change, monkeypatch):
-    """The default fused trainer takes the kernels (on the CPU, forced, the
-    plain twin: one call an epoch); one unsupported flag, the witness or a
-    second rank takes the PyTorch path, and no launch is counted."""
+    """The default fused trainer takes the kernels (built as on the card,
+    then on the CPU the plain twin: one call an epoch); one unsupported
+    flag, the witness or a second rank takes the PyTorch path, and no
+    launch is counted. Built on the CPU, none takes them."""
     task = tenvs.make_task("hovering", num_envs=N, device="cpu")
     cfg = tppo.PPOConfig(horizon=4, minibatch_size=2048, mini_epochs=1)
     kw = {}
@@ -198,11 +209,13 @@ def test_which_fused_trainers_take_the_kernels(change, monkeypatch):
         kw["group"] = pdist.Group(0, 2, 0, "gloo")
     elif change:
         cfg = dataclasses.replace(cfg, **change)
+    assert not fused_ppo.FusedHoveringPPO(task, cfg, **kw).prep_kernels
+    calls = _through_the_plain_twin(monkeypatch)
     tr = fused_ppo.FusedHoveringPPO(task, cfg, **kw)
-    assert tr._prep_supported() == (change is None)
+    assert tr.prep_kernels == (change is None)
+    assert tr.device == task.device
     if change == "world":
         return          # an epoch needs the second rank
-    calls = _through_the_plain_twin(monkeypatch)
     before = dict(ep.KERNEL.launches)
     ts, m = tr.train_epoch(tr.init(0))
     assert len(calls) == (1 if change is None else 0)

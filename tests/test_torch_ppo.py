@@ -25,6 +25,7 @@ from airgym_tpu_torch.rl import checkpoint as tckpt
 from airgym_tpu_torch.rl import losses as tlosses
 from airgym_tpu_torch.rl import moving_stats as tms
 from airgym_tpu_torch.rl import ppo as tppo
+from airgym_tpu_torch.rl.fused_ppo import FusedHoveringPPO
 
 N, H = 64, 8
 SMALL = dict(horizon=H, minibatch_size=128, mini_epochs=3)
@@ -44,11 +45,11 @@ def jax_named(params) -> dict:
     return {k: v.numpy() for k, v in tckpt._jax_params_to_ref(host).items()}
 
 
-def pair(cfg_kw, task="hovering"):
-    cfg_j = jppo.PPOConfig(**SMALL, **cfg_kw)
-    cfg_t = tppo.PPOConfig(**SMALL, **cfg_kw)
-    jt = jppo.PPO(jenvs.make_task(task, num_envs=N), cfg_j)
-    tt = tppo.PPO(tenvs.make_task(task, num_envs=N, device="cpu"), cfg_t)
+def pair(cfg_kw, task="hovering", n=N, trainer=tppo.PPO):
+    cfg_j = jppo.PPOConfig(**{**SMALL, **cfg_kw})
+    cfg_t = tppo.PPOConfig(**{**SMALL, **cfg_kw})
+    jt = jppo.PPO(jenvs.make_task(task, num_envs=n), cfg_j)
+    tt = trainer(tenvs.make_task(task, num_envs=n, device="cpu"), cfg_t)
     ts_j = jt.init(jax.random.PRNGKey(0))
     host = lambda tree: jax.tree.map(np.asarray, tree)
     ck = tckpt.from_jax(host(ts_j.params), host(ts_j.obs_rms),
@@ -82,21 +83,32 @@ def to_jax(d):
 
 
 @pytest.mark.parametrize("option", ["default", "clip_value", "smooth_clamp",
-                                    "linear", "fixed"])
+                                    "linear", "fixed", "fused_linear"])
 def test_update_matches_jax(option):
     """One update phase (3 mini-epochs x 4 minibatches) on the same
-    dataset; each option switches one config of the non-fused trainer."""
+    dataset; each option switches one config of the non-fused trainer.
+    ``fused_linear``: the fused trainer's update (the update kernel's
+    plain version) under the linear schedule, at one 1024-env tile."""
+    linear = dict(lr_schedule="linear", max_epochs=10)
     kw = {"clip_value": dict(clip_value=True),
           "smooth_clamp": dict(use_smooth_clamp=True),
-          "linear": dict(lr_schedule="linear", max_epochs=10),
+          "linear": linear,
+          "fused_linear": dict(linear, minibatch_size=2048),
           "fixed": dict(lr_schedule="fixed")}.get(option, {})
-    jt, tt, ts_j, ts_t = pair(kw)
-    if option == "linear":
+    n, trainer = ((1024, FusedHoveringPPO) if option == "fused_linear"
+                  else (N, tppo.PPO))
+    jt, tt, ts_j, ts_t = pair(kw, n=n, trainer=trainer)
+    if option.endswith("linear"):
         ts_j = ts_j._replace(epoch=jnp.asarray(4, jnp.int32))
         ts_t = dataclasses.replace(ts_t, epoch=4)
-    d = dataset(18, seed=1)
+    d = dataset(18, seed=1, B=n * H)
     ts_j2, m_j = jax.jit(jt.update)(ts_j, to_jax(d))
-    ts_t2, m_t = tt.update(ts_t, to_torch(d))
+    d_t = to_torch(d)
+    if option == "fused_linear":
+        assert tt.update_kernel
+        # the update kernel takes the observations normalised (_dataset)
+        d_t["obs"] = ts_t.obs_rms.normalize(d_t["obs"])
+    ts_t2, m_t = tt.update(ts_t, d_t)
     close_tensors(jax_named(ts_j2.params),
                   dict(ts_t2.model.named_parameters()))
     adam = ts_j2.opt_state[0]
@@ -104,7 +116,7 @@ def test_update_matches_jax(option):
     close_tensors(jax_named(adam.nu), ts_t2.adam["v"])
     assert float(ts_t2.adam["count"][0]) == int(adam.count) == 3 * 4
     np.testing.assert_allclose(float(ts_t2.lr), float(ts_j2.lr), rtol=1e-6)
-    if option == "linear":
+    if option.endswith("linear"):
         np.testing.assert_allclose(float(ts_t2.lr), 3e-4 * 0.6, rtol=1e-6)
     for k in tppo.METRICS:
         np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=5e-3,

@@ -310,6 +310,49 @@ def test_configs_outside_the_slice_raise(case):
         trainer.train_epoch(trainer.init(0))
 
 
+@pytest.mark.parametrize("case", [
+    "hovering", "balloon_64", "num_envs_1000", "ctl_mode_pos", "relu",
+    "units", "separate", "fixed_sigma_off", "use_fused_rollout_off",
+    "tracking"])
+def test_runner_and_refusal_agree_on_the_fused_trainer(case):
+    """``Runner.build`` takes the task's fused trainer exactly where the
+    YAML asks for it and ``refusal`` returns None, and the fused class
+    refuses to be built for the reason ``refusal`` gives: the shipped
+    Hovering and Tracking YAMLs fuse; Balloon's 64 envs, 1000 envs, pos
+    mode and each other net take the plain PPO."""
+    from airgym_tpu_torch.rl.runner import Runner
+    name = {"balloon_64": "balloon", "tracking": "tracking"}.get(
+        case, "hovering")
+    with open(REPO / "airgym_tpu_torch" / "configs" / f"ppo_{name}.yaml") as f:
+        cfg = yaml.safe_load(f)
+    net, args = cfg["params"]["network"], {"task": name, "device": "cpu"}
+    if case == "num_envs_1000":
+        args["num_envs"] = 1000
+    elif case == "ctl_mode_pos":
+        args["ctl_mode"] = "pos"
+    elif case == "relu":
+        net["mlp"]["activation"] = "relu"
+    elif case == "units":
+        net["mlp"]["units"] = [32, 32]
+    elif case == "separate":
+        net["separate"] = True
+    elif case == "fixed_sigma_off":
+        net["space"]["continuous"]["fixed_sigma"] = False
+    elif case == "use_fused_rollout_off":
+        cfg["params"]["config"]["use_fused_rollout"] = False
+    runner = Runner().load(cfg)
+    task, trainer, _ = runner.build(args)
+    cls = tfused.FUSED_TRAINERS[name]
+    reason = cls.refusal(task, runner.network_kw())
+    fused = case in ("hovering", "tracking")
+    assert (reason is None) == (fused or case == "use_fused_rollout_off")
+    assert type(trainer) is (cls if fused else tppo.PPO)
+    if reason is not None:
+        with pytest.raises(NotImplementedError) as err:
+            cls(task, trainer.cfg, network_kw=runner.network_kw())
+        assert reason in str(err.value)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "airgym_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
